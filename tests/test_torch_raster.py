@@ -1,0 +1,161 @@
+"""Port parity: the streaming raster's plain version.
+
+Against the JAX kernel: both rasterize the JAX setup's stream rows of the
+small sponza frame (so setup rounding is not under test here) at 256x128,
+in the production stream order, and must agree on every sample's winning
+triangle id exactly and on its depth bit for bit wherever the ids agree
+(they all do).
+
+Against the hand: the Vulkan fill-rule cases of
+tests/test_raster_pallas.py (TestFillRulesHandComputed), with their
+expected coverage written out as literal arrays, on geometry whose screen
+coordinates are exact in float32.
+"""
+
+import numpy as np
+import jax
+import pytest
+
+import torch_parity as tp
+
+tp.limit_threads()
+
+
+def _port_raster(tri_data, bbox_rows, valid, height, width, msaa):
+    from vktf_tpu_torch.ops.raster import rasterize, raster_stream, stream_perm
+
+    perm = stream_perm(bbox_rows, valid, chunk=256)
+    stream = raster_stream(tri_data, bbox_rows, perm, chunk=256, group_size=8)
+    ids, depth = rasterize(*stream, height, width, msaa)
+    return ids.numpy(), depth.numpy()
+
+
+@pytest.mark.parametrize("msaa", [1, 4])
+def test_raster_matches_jax_kernel(msaa):
+    from vktf_tpu.ops.raster_pallas import rasterize_pallas, stream_perm
+
+    setup, _lights, _vp = tp.jax_setup("sponza_small")
+    cfg = tp.jax_config(msaa)
+    jsetup = {k: setup[k] for k in ("tri_data", "bbox_rows", "valid")}
+
+    @jax.jit
+    def reference(s):
+        return rasterize_pallas(
+            s, cfg.padded_height, cfg.padded_width, tile_shape=cfg.tile_shape,
+            msaa_samples=msaa, chunk=cfg.pallas_chunk, interpret=True,
+            sort="none", perm=stream_perm(s, chunk=cfg.pallas_chunk),
+            group_size=cfg.raster_group_size,
+            interleave=cfg.resolved_interleave(), assemble=True)
+
+    want_ids, want_depth = (np.asarray(a) for a in reference(jsetup))
+    ids, depth = _port_raster(tp.as_torch(setup["tri_data"]),
+                              tp.as_torch(setup["bbox_rows"]),
+                              tp.as_torch(setup["valid"]),
+                              cfg.padded_height, cfg.padded_width, msaa)
+    assert ids.shape == want_ids.shape == (msaa, tp.HEIGHT, tp.WIDTH)
+    covered = (want_ids >= 0).mean()
+    assert 0.5 < covered < 1.0  # the courtyard fills most of the view
+    np.testing.assert_array_equal(ids, want_ids)
+    tp.assert_bits_equal(depth, want_depth, "depth")
+
+
+def _raster_hand(tris, msaa, width=128, height=32):
+    s = tp.setup_px(tris, width, height)
+    ids, _depth = _port_raster(s["tri_data"], s["bbox_rows"], s["valid"],
+                               height, width, msaa)
+    return ids
+
+
+class TestFillRulesHandComputed:
+    """tests/test_raster_pallas.py's hand-derived cases (top-left rule,
+    standard sample locations, shared-edge watertightness)."""
+
+    def test_shared_diagonal_exactly_once_1x(self):
+        # tri 0 owns the diagonal (a > 0: top-left, inclusive)
+        ids = _raster_hand([[(2, 2), (10, 10), (10, 2)],
+                            [(2, 2), (2, 10), (10, 10)]], msaa=1)
+        expected = np.full((1, 32, 128), -1, np.int32)
+        expected[0, 2:10, 2:10] = np.asarray([
+            [0, 0, 0, 0, 0, 0, 0, 0],
+            [1, 0, 0, 0, 0, 0, 0, 0],
+            [1, 1, 0, 0, 0, 0, 0, 0],
+            [1, 1, 1, 0, 0, 0, 0, 0],
+            [1, 1, 1, 1, 0, 0, 0, 0],
+            [1, 1, 1, 1, 1, 0, 0, 0],
+            [1, 1, 1, 1, 1, 1, 0, 0],
+            [1, 1, 1, 1, 1, 1, 1, 0],
+        ], np.int32)
+        np.testing.assert_array_equal(ids, expected)
+
+    def test_shared_diagonal_exactly_once_4x(self):
+        # per sample: id = 0 where sy < sx inside [2, 10)^2, else 1; the
+        # standard 4x offsets (.375,.125) (.875,.375) (.125,.625)
+        # (.625,.875) put no sample on the diagonal: samples 0 and 1 of a
+        # diagonal pixel lie above it (tri 0), samples 2 and 3 below (tri 1)
+        ids = _raster_hand([[(2, 2), (10, 10), (10, 2)],
+                            [(2, 2), (2, 10), (10, 10)]], msaa=4)
+        block = np.asarray([  # rows 2..9, cols 2..9, per sample
+            [[0, 0, 0, 0, 0, 0, 0, 0],
+             [1, 0, 0, 0, 0, 0, 0, 0],
+             [1, 1, 0, 0, 0, 0, 0, 0],
+             [1, 1, 1, 0, 0, 0, 0, 0],
+             [1, 1, 1, 1, 0, 0, 0, 0],
+             [1, 1, 1, 1, 1, 0, 0, 0],
+             [1, 1, 1, 1, 1, 1, 0, 0],
+             [1, 1, 1, 1, 1, 1, 1, 0]],
+            [[0, 0, 0, 0, 0, 0, 0, 0],
+             [1, 0, 0, 0, 0, 0, 0, 0],
+             [1, 1, 0, 0, 0, 0, 0, 0],
+             [1, 1, 1, 0, 0, 0, 0, 0],
+             [1, 1, 1, 1, 0, 0, 0, 0],
+             [1, 1, 1, 1, 1, 0, 0, 0],
+             [1, 1, 1, 1, 1, 1, 0, 0],
+             [1, 1, 1, 1, 1, 1, 1, 0]],
+            [[1, 0, 0, 0, 0, 0, 0, 0],
+             [1, 1, 0, 0, 0, 0, 0, 0],
+             [1, 1, 1, 0, 0, 0, 0, 0],
+             [1, 1, 1, 1, 0, 0, 0, 0],
+             [1, 1, 1, 1, 1, 0, 0, 0],
+             [1, 1, 1, 1, 1, 1, 0, 0],
+             [1, 1, 1, 1, 1, 1, 1, 0],
+             [1, 1, 1, 1, 1, 1, 1, 1]],
+            [[1, 0, 0, 0, 0, 0, 0, 0],
+             [1, 1, 0, 0, 0, 0, 0, 0],
+             [1, 1, 1, 0, 0, 0, 0, 0],
+             [1, 1, 1, 1, 0, 0, 0, 0],
+             [1, 1, 1, 1, 1, 0, 0, 0],
+             [1, 1, 1, 1, 1, 1, 0, 0],
+             [1, 1, 1, 1, 1, 1, 1, 0],
+             [1, 1, 1, 1, 1, 1, 1, 1]],
+        ], np.int32)
+        expected = np.full((4, 32, 128), -1, np.int32)
+        expected[:, 2:10, 2:10] = block
+        np.testing.assert_array_equal(ids, expected)
+
+    def test_top_left_rule_edges_through_samples_1x(self):
+        # borders through 1x sample centres: top/left inclusive,
+        # right/bottom exclusive, the diagonal sample (4.5, 3.5) -> tri 0
+        ids = _raster_hand([[(2.5, 2.5), (6.5, 4.5), (6.5, 2.5)],
+                            [(2.5, 2.5), (2.5, 4.5), (6.5, 4.5)]], msaa=1)
+        expected = np.full((1, 32, 128), -1, np.int32)
+        expected[0, 2:4, 2:6] = np.asarray([[0, 0, 0, 0],
+                                            [1, 1, 0, 0]], np.int32)
+        np.testing.assert_array_equal(ids, expected)
+
+    def test_standard_4x_sample_x_positions(self):
+        # band x in [3.375, 3.625): sample 0 (x .375) in, sample 3 (x .625)
+        # out, samples 1 and 2 beside it
+        ids = _raster_hand([[(3.375, 0), (3.625, 32), (3.625, 0)],
+                            [(3.375, 0), (3.375, 32), (3.625, 32)]], msaa=4)
+        expected = np.zeros((4, 32, 128), bool)
+        expected[0, :, 3] = True
+        np.testing.assert_array_equal(ids >= 0, expected)
+
+    def test_standard_4x_sample_y_positions(self):
+        # band y in [2.375, 2.625): sample 1 (y .375) in, sample 2 (y .625)
+        # out
+        ids = _raster_hand([[(0, 2.375), (128, 2.625), (128, 2.375)],
+                            [(0, 2.375), (0, 2.625), (128, 2.625)]], msaa=4)
+        expected = np.zeros((4, 32, 128), bool)
+        expected[1, 2, :] = True
+        np.testing.assert_array_equal(ids >= 0, expected)

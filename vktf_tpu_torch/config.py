@@ -1,0 +1,105 @@
+"""Render configuration of the PyTorch + CUDA port.
+
+The counterpart of ``vktf_tpu/config.py`` for the slice the port renders:
+pixel-rate shading, one opaque peel layer, the fused-mip texture pool and
+the exact planar RGB present. Only the fields this pipeline honours exist
+here, and an explicit value it cannot honour raises instead of falling back
+silently.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+_SUPPORTED_MSAA = (8, 4, 2, 1)
+
+# Vulkan standard sample locations (pixel-relative), spec table "Standard
+# sample locations" — the same table as vktf_tpu/ops/raster_xla.py.
+SAMPLE_OFFSETS = {
+    1: ((0.5, 0.5),),
+    2: ((0.75, 0.75), (0.25, 0.25)),
+    4: ((0.375, 0.125), (0.875, 0.375), (0.125, 0.625), (0.625, 0.875)),
+    8: (
+        (0.5625, 0.3125),
+        (0.4375, 0.6875),
+        (0.8125, 0.5625),
+        (0.3125, 0.1875),
+        (0.1875, 0.8125),
+        (0.0625, 0.4375),
+        (0.6875, 0.9375),
+        (0.9375, 0.0625),
+    ),
+}
+
+# Pixel block one CUDA raster thread block owns; tile dimensions must be
+# multiples of it.
+RASTER_BLOCK = (16, 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static render configuration."""
+
+    width: int = 1920
+    height: int = 1080
+    msaa_samples: int = 4
+    # Framebuffer tile (height, width) in pixels: the frame is rasterized
+    # padded to a whole number of tiles and cropped at present.
+    tile_shape: Tuple[int, int] = (64, 128)
+    # Triangles per raster stream chunk (the unit of the chunk-bbox skip and
+    # of the CUDA raster kernel's shared-memory staging): 256 only.
+    pallas_chunk: int = 256
+    # Sampler anisotropy as single-tap LOD sharpening (1.0 = isotropic).
+    max_anisotropy: float = 16.0
+    clear_color: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 1.0)
+    # Relative view-projection change (Frobenius) above which the cached
+    # Morton stream permutation is recomputed; 0 re-sorts every frame.
+    resort_threshold: float = 0.03
+    # Only "pixel" (shade once per pixel, resolve by coverage) is ported.
+    shading_rate: str = "pixel"
+    # Only the exact planar (3, H, W) u8 frame is ported.
+    present_format: str = "rgb"
+    present_scale: int = 1
+
+    def __post_init__(self) -> None:
+        if self.msaa_samples not in _SUPPORTED_MSAA:
+            raise ValueError(f"msaa_samples must be one of {_SUPPORTED_MSAA}, "
+                             f"got {self.msaa_samples}")
+        if self.width <= 0 or self.height <= 0:
+            raise ValueError("render target must be non-empty")
+        if self.shading_rate != "pixel":
+            raise ValueError(f"shading_rate {self.shading_rate!r} is not "
+                             "ported; only 'pixel' is")
+        if self.present_format != "rgb" or self.present_scale != 1:
+            raise ValueError("only present_format='rgb', present_scale=1 is "
+                             "ported")
+        th, tw = self.tile_shape
+        bh, bw = RASTER_BLOCK
+        if th <= 0 or tw <= 0 or th % bh or tw % bw:
+            raise ValueError(f"tile_shape must be positive multiples of "
+                             f"{RASTER_BLOCK}, got {self.tile_shape}")
+        if self.pallas_chunk != 256:
+            raise ValueError(f"pallas_chunk={self.pallas_chunk} is not ported; "
+                             "the raster kernel stages 256-triangle chunks")
+        if self.max_anisotropy < 1.0:
+            raise ValueError("max_anisotropy must be >= 1")
+
+    @property
+    def tiles_y(self) -> int:
+        return -(-self.height // self.tile_shape[0])
+
+    @property
+    def tiles_x(self) -> int:
+        return -(-self.width // self.tile_shape[1])
+
+    @property
+    def padded_height(self) -> int:
+        return self.tiles_y * self.tile_shape[0]
+
+    @property
+    def padded_width(self) -> int:
+        return self.tiles_x * self.tile_shape[1]
+
+    def replace(self, **kwargs) -> "RenderConfig":
+        return dataclasses.replace(self, **kwargs)

@@ -1,0 +1,96 @@
+"""Per-triangle shade table: CUDA kernel and its plain version.
+
+Replaces ``vktf_tpu/ops/shade_table.py`` ``build_shade_table_pallas``
+(kernel body ``_table_build_kernel``): one row of 64 f32 columns per
+triangle holding everything the deferred shade needs — attribute PLANES
+(perspective-correct: A(s) = P_A . (s - anchor) / W(s), P_A = sum_i cof_i *
+A_i over the anchored cofactor edges) plus material constants. The TPU
+kernel emits the row as u16 hi|lo halves for its gather unit; the port
+keeps plain f32 (bit-identical values).
+
+Column layout (same as the JAX package):
+  0..2   w plane            3..8   u, v planes
+  9..17  world position      18..26 normal        27..38 tangent (xyzw)
+  39..42 base color factor   43..44 metallic, roughness   45 normal scale
+  46 pool base row   47 level-0 width   48 levels   49..51 sampler codes
+  52 alpha mode   53 alpha cutoff   54..55 plane anchor (x, y)   56..63 0
+
+CUDA design (``csrc/shade_table.cu``): one thread per triangle; reads are
+component-major and coalesced, each thread writes its own 256-byte row.
+Bound on the card: bytes — 74 floats in and 64 out per triangle, 145 MB
+at the sponza preset's 262,688 triangles (43 us at 3.35 TB/s), against
+~250 flops. Measured 0.33 ms per launch on an NVIDIA H100 80GB HBM3 at a
+700 W power limit (chip_smoke.py), the plain version 6.7 ms: the
+row-per-thread stores are strided across the warp, which a later PR can
+coalesce through shared memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vktf_tpu_torch.ops import _cuda
+from vktf_tpu_torch.ops.fmath import fma
+from vktf_tpu_torch.ops.vertex import world_corners
+
+ROW = 64
+C_WPLANE, C_UV, C_WPOS, C_NRM, C_TAN = 0, 3, 9, 18, 27
+C_BASE, C_MR, C_NSCALE, C_MROW, C_MW0, C_MLEVELS, C_SAMP0 = 39, 43, 45, 46, 47, 48, 49
+C_AMODE, C_ACUT, C_AX, C_AY = 52, 53, 54, 55
+
+KERNEL = _cuda.Kernel(
+    "shade_table", "shade_table.cu",
+    "vktf_tpu/ops/shade_table.py:128 (_table_build_kernel via build_shade_table_pallas, pallas_call :232)",
+)
+
+
+def build_shade_table_plain(edge9, tri_corner, static_cols, anchor2, mrowsT):
+    """Plain-torch version: (T, 64) f32."""
+    e = [[edge9[i * 3 + k] for k in range(3)] for i in range(3)]
+    tc = tri_corner
+    wp = world_corners(mrowsT, tc, 6, translate=True)
+    wn = world_corners(mrowsT, tc, 15, translate=False)
+    wt = world_corners(mrowsT, tc, 24, translate=False)
+    wt.append([tc[24 + 9 + i] for i in range(3)])
+    uv = [[tc[c * 3 + i] for i in range(3)] for c in range(2)]
+    cols = [e[0][k] + e[1][k] + e[2][k] for k in range(3)]
+    for corners in (uv, wp, wn, wt):
+        for corner in corners:
+            for k in range(3):
+                cols.append(fma(e[2][k], corner[2],
+                                fma(e[0][k], corner[0], e[1][k] * corner[1])))
+    cols += list(static_cols)
+    cols += [anchor2[0], anchor2[1]]
+    zero = torch.zeros_like(cols[0])
+    while len(cols) < ROW:
+        cols.append(zero)
+    return torch.stack(cols, dim=1)
+
+
+def build_shade_table(edge9, tri_corner, static_cols, anchor2, mrowsT):
+    """(T, 64) f32 shade table. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if not edge9.is_cuda:
+        return build_shade_table_plain(edge9, tri_corner, static_cols, anchor2,
+                                       mrowsT)
+    t = edge9.shape[1]
+    dev = edge9.device
+    _cuda.require(edge9, "edge9", torch.float32, (9, t))
+    _cuda.require(tri_corner, "tri_corner", torch.float32, (36, t), dev)
+    _cuda.require(static_cols, "static_cols", torch.float32, (15, t), dev)
+    _cuda.require(anchor2, "anchor2", torch.float32, (2, t), dev)
+    _cuda.require(mrowsT, "mrowsT", torch.float32, (16, t), dev)
+    table = torch.empty((t, ROW), dtype=torch.float32, device=dev)
+    lib = _cuda.library(KERNEL.source)
+    fn = lib.vktf_shade_table
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if t:
+        KERNEL.launches += 1
+        _cuda.check(fn(_cuda.ptr(edge9), _cuda.ptr(tri_corner),
+                       _cuda.ptr(static_cols), _cuda.ptr(anchor2),
+                       _cuda.ptr(mrowsT), _cuda.ptr(table), t,
+                       _cuda.stream_of(edge9)), "shade-table kernel")
+    return table
