@@ -5,20 +5,31 @@
 
 Needs one CUDA card and nvcc. In order, it:
   1. reports the card (nvidia-smi name and power limit);
-  2. builds the four CUDA kernels from vktf_tpu_torch/csrc (one nvcc each,
-     in parallel) and times the build;
+  2. builds the CUDA sources of vktf_tpu_torch/csrc (one nvcc each, in
+     parallel; six kernels) and times the build;
   3. builds the sponza preset with the port's numpy builder and uploads it;
-  4. renders frames through the port's Scene (render_async / render_still)
-     with every kernel launch counter set to 0 just before and read just
-     after, printing per-stage CUDA-event times and the frame time;
-  5. holds each kernel against its plain PyTorch version on the card, at
-     the shapes the frame gave it, and times both;
-  6. renders a small frame on the card and on the CPU (plain versions
-     only) and compares them;
-  7. checks the frame (shape, dtype, >= 50% of pixels lit), saves it as
+  4. the opaque path (K = 1): renders frames through the port's Scene
+     (render_async / render_still) with every kernel launch counter set to
+     0 just before and read just after, printing per-stage CUDA-event
+     times and the frame time;
+  5. holds each K = 1 kernel against its plain PyTorch version on the
+     card, at the shapes the frame gave it, and times both;
+  6. renders the same scene at a forced peel_layers=2: the frame must
+     equal the K = 1 frame;
+  7. the translucent path: the sponza preset with its curtain and clutter
+     materials BLEND at alpha 0.5 (K = 8 from the scene), frames through
+     Scene.render_async with the counters zeroed and read, the K-layer
+     raster and the layer shade held against their plain versions and
+     timed, and the stage-by-stage frame against the Scene frame;
+  8. renders small opaque and translucent frames on the card and on the
+     CPU (plain versions only) and compares them;
+  9. checks the frames (shape, dtype, >= 50% of pixels lit), saves them as
      .npy in the build directory (vktf_tpu_torch/_build/, not committed),
      and prints the kernels line, the card line and, last,
      {"ok": true, "device": {...}}.
+Each kernel record carries its least possible time on the card
+(``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s, both counted from this run's inputs).
 Any failed check raises, so the script exits non-zero and prints no result.
 """
 
@@ -43,6 +54,31 @@ TABLE_MISMATCH = 1e-5         # fraction of table values not bit-equal
 SHADE_STEP = 1                # max u8 step of any channel
 SHADE_MISMATCH = 1e-3         # fraction of pixels off by that step
 FRAME_MISMATCH = 5e-3         # small frame: card vs CPU plain path
+# layer shade: float32 values (covered entries) not bit-equal, and their
+# largest distance in units in the last place (kernel and plain version run
+# the same operations with the same CUDA math library)
+SHADE_LAYER_MISMATCH = 1e-5
+SHADE_LAYER_ULP = 4
+# forced peel_layers=2 on the opaque scene vs the K = 1 frame: the
+# composite returns an opaque layer 0 exactly, but the K = 1 path encodes
+# sRGB inside the shade kernel (powf) and the K-layer path in torch
+# (torch.pow), whose last bits may differ: one u8 step on <= 1e-4 pixels
+FORCED_K2_MISMATCH = 1e-4
+TRANSLUCENT_SHARE_MIN = 0.05  # pixels whose nearest surface is translucent
+
+# the card's published peaks (H100 SXM): HBM bytes/s, float32 operations/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations per unit of work, counted from the kernels' sources
+# (a transcendental counted as 20): setup per triangle; raster per
+# (sample, triangle) pair whose pixel lies in the triangle's bbox (5 plane
+# evaluations and the tests); table per triangle; shade per shaded pixel,
+# plus per light (BRDF)
+SETUP_OPS = 400
+RASTER_OPS = 20
+TABLE_OPS = 600
+SHADE_OPS = 1000
+SHADE_OPS_PER_LIGHT = 120
 
 
 def log(*parts) -> None:
@@ -88,6 +124,68 @@ def bits_mismatch(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
     return int(diff.sum()), float(err.max()) if err.numel() else 0.0
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least time in ms the card could take, and what bounds it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def raster_bound(stream, height: int, width: int, samples: int, layers: int):
+    """Valid triangles' 20 stream rows and 8 bbox rows read once, the chunk
+    bboxes, the (K, S, H, W) ids and depths written once; operations per
+    (sample, triangle) pair whose pixel lies in the triangle's bbox."""
+    tri_data, tri_bbox, chunk_bbox = stream
+    valid = tri_data[15] >= 0
+    box = tri_bbox[:4, valid]
+    area = (box[2] - box[0]).clamp(min=0) * (box[3] - box[1]).clamp(min=0)
+    nbytes = (int(valid.sum()) * 28 * 4 + chunk_bbox.numel() * 4
+              + layers * samples * height * width * 8)
+    return bound(nbytes, float(area.double().sum()) * samples * RASTER_OPS)
+
+
+def shade_bound(tri, sx, sy, table, max_anisotropy: float, num_lights: int,
+                in_bytes_per_px: int, out_bytes_per_entry: int):
+    """Per-pixel inputs and outputs once, plus each distinct table row and
+    fused pool row the covered entries read (256 bytes each); operations per
+    covered entry."""
+    from vktf_tpu_torch.ops import shade_kernel as sk
+    from vktf_tpu_torch.ops.fmath import f32, fma
+    from vktf_tpu_torch.ops.shade_table import C_AX, C_AY
+
+    n = tri.shape[-1]
+    flat = tri.reshape(-1)
+    covered = flat >= 0
+    reps = flat.numel() // n
+    ids = flat[covered]
+    px, py = sx.repeat(reps)[covered], sy.repeat(reps)[covered]
+    # the pool row each covered entry reads: the fragment body's first
+    # addressing steps (shade_kernel._fragment_plain)
+    rows = table[ids.long()]
+    sxa, sya = px - rows[:, C_AX], py - rows[:, C_AY]
+    w = fma(rows[:, 0], sxa, rows[:, 1] * sya) + rows[:, 2]
+    inv_w = 1.0 / torch.where(w.abs() < 1e-30, f32(1e-30, w), w)
+
+    def cf(v):
+        return f32(v, px)
+
+    tp0 = sk._texture_params(cf, lambda c: rows[:, c], sxa, sya, inv_w, max_anisotropy, 0)
+    pool_rows = sk._level_addr(cf, tp0, tp0["l0"])[0]
+    distinct = torch.unique(ids).numel() + torch.unique(pool_rows).numel()
+    nbytes = (flat.numel() * 4 + n * in_bytes_per_px + flat.numel() * out_bytes_per_entry
+              + distinct * 256)
+    ops = int(covered.sum()) * (SHADE_OPS + SHADE_OPS_PER_LIGHT * num_lights)
+    return bound(nbytes, ops)
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 distance in units in the last place."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--small", action="store_true",
@@ -101,24 +199,27 @@ def main() -> int:
 
     from vktf_tpu_torch.config import RenderConfig
     from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
-    from vktf_tpu_torch.models.scenes import build_preset, sponza_like_asset
-    from vktf_tpu_torch.ops import _cuda, pipeline, raster, setup_kernel, shade_kernel, shade_table
+    from vktf_tpu_torch.models.scenes import build_preset, set_blend, sponza_like_asset
+    from vktf_tpu_torch.ops import (_cuda, pipeline, present, raster, setup_kernel,
+                                    shade_kernel, shade_table)
     from vktf_tpu_torch.scene.scene import Scene
 
     card = card_line()
     log("card:", card, "|", torch.cuda.get_device_name(0), "| torch",
         torch.__version__, "cuda", torch.version.cuda)
-    kernels = [setup_kernel.KERNEL, raster.KERNEL, shade_table.KERNEL, shade_kernel.KERNEL]
+    kernels = [setup_kernel.KERNEL, raster.KERNEL, shade_table.KERNEL, shade_kernel.KERNEL,
+               raster.KERNEL_LAYERS, shade_kernel.KERNEL_LAYER]
+    sources = list(dict.fromkeys(k.source for k in kernels))
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    build_s = _cuda.build([k.source for k in kernels])
+    build_s = _cuda.build(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
         + ", ".join(f"{s} {v:.1f} s" for s, v in build_s.items()))
-    for k in kernels:
-        log(f"ptxas {k.source}: " + " | ".join(
-            line.strip() for line in _cuda.build_log(k.source).splitlines()
-            if "registers" in line or "spill" in line))
+    for source in sources:
+        log(f"ptxas {source}: " + " | ".join(
+            line.strip() for line in _cuda.build_log(source).splitlines()
+            if "registers" in line or "spill" in line or "Compiling entry" in line))
 
     # ---- 3. scene -------------------------------------------------------
     if args.small:
@@ -139,62 +240,72 @@ def main() -> int:
     torch.cuda.synchronize()
     meta = scene.meta
     log(f"scene: {meta.num_triangles} triangles, {meta.num_instances} instances, "
-        f"{meta.num_lights} lights, pool {tuple(scene.render_scene.quad_pool.shape)}; "
-        f"assets {host_s:.1f} s, flatten+upload {time.perf_counter() - t0:.1f} s")
-
-    # ---- 4. the main path: frames through Scene -------------------------
-    for k in kernels:
-        k.launches = 0
-    frame_ms = []
-    stage_ms = []
-    prog = scene.frame_program
-    for i in range(args.frames):
-        prog.timer = pipeline._StageTimer()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frame = scene.render_async()
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        stage_ms.append(prog.timer.millis())
-    still = scene.render_still()
-    launches = {k.name: k.launches for k in kernels}
-    prog.timer = None
-    log("launches in the main path:", json.dumps(launches))
-    require(all(n > 0 for n in launches.values()), "every kernel ran in the main path")
-    steady = frame_ms[1:] if len(frame_ms) > 1 else frame_ms
-    log(f"frame ms (host clock, synchronized): first {frame_ms[0]:.3f}, "
-        f"steady median {float(np.median(steady)):.3f}, min {min(steady):.3f}, "
-        f"all {[round(v, 3) for v in frame_ms]}")
-    stages = {name: float(np.median([s[name] for s in stage_ms[1:] or stage_ms]))
-              for name in stage_ms[0]}
-    log("stage ms (CUDA events, steady median):",
-        json.dumps({k: round(v, 4) for k, v in stages.items()}))
-
-    # ---- 7a. the frame --------------------------------------------------
-    require(still.shape == (3, height, width) and still.dtype == np.uint8,
-            f"frame shape/dtype {still.shape} {still.dtype}")
-    require(np.array_equal(still, frame.cpu().numpy()), "render_still == render_async")
+        f"{meta.num_lights} lights, pool {tuple(scene.render_scene.quad_pool.shape)}, "
+        f"peel layers {meta.peel_layers}; assets {host_s:.1f} s, flatten+upload "
+        f"{time.perf_counter() - t0:.1f} s")
+    ph, pw = config.padded_height, config.padded_width
     clear = (np.asarray(config.clear_color[:3]) * 255 + 0.5).astype(np.uint8)
-    lit = float((still != clear[:, None, None]).any(axis=0).mean())
-    log(f"pixels differing from the clear colour: {lit:.4f}")
-    require(lit >= 0.5, "at least half the frame is lit")
-    out_path = _cuda.BUILD_DIR / f"frame_{'small' if args.small else 'sponza'}_{width}x{height}.npy"
-    out_path.parent.mkdir(parents=True, exist_ok=True)
-    np.save(out_path, still)
-    log("frame saved:", out_path.relative_to(_cuda.BUILD_DIR.parent.parent))
+
+    def drive(scn, tag: str):
+        """One path through Scene: counters zeroed just before, read just
+        after; prints frame and stage times."""
+        for k in kernels:
+            k.launches = 0
+        frame_ms, stage_ms = [], []
+        prog = scn.frame_program
+        for _ in range(args.frames):
+            prog.timer = pipeline._StageTimer()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame = scn.render_async()
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            stage_ms.append(prog.timer.millis())
+        still = scn.render_still()
+        launches = {k.name: k.launches for k in kernels}
+        prog.timer = None
+        log(f"[{tag}] launches in the path:", json.dumps(launches))
+        steady = frame_ms[1:] if len(frame_ms) > 1 else frame_ms
+        log(f"[{tag}] frame ms (host clock, synchronized): first {frame_ms[0]:.3f}, "
+            f"steady median {float(np.median(steady)):.3f}, min {min(steady):.3f}, "
+            f"all {[round(v, 3) for v in frame_ms]}")
+        stages = {name: float(np.median([s[name] for s in stage_ms[1:] or stage_ms]))
+                  for name in stage_ms[0]}
+        log(f"[{tag}] stage ms (CUDA events, steady median):",
+            json.dumps({k: round(v, 4) for k, v in stages.items()}))
+        require(still.shape == (3, height, width) and still.dtype == np.uint8,
+                f"{tag} frame shape/dtype {still.shape} {still.dtype}")
+        require(np.array_equal(still, frame.cpu().numpy()), f"{tag}: render_still == render_async")
+        lit = float((still != clear[:, None, None]).any(axis=0).mean())
+        log(f"[{tag}] pixels differing from the clear colour: {lit:.4f}")
+        require(lit >= 0.5, f"{tag}: at least half the frame is lit")
+        out_path = _cuda.BUILD_DIR / f"frame_{tag}_{width}x{height}.npy"
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        np.save(out_path, still)
+        log(f"[{tag}] frame saved:", out_path.relative_to(_cuda.BUILD_DIR.parent.parent))
+        return still, launches
+
+    # ---- 4. the opaque path (K = 1) through Scene -------------------------
+    still, launches = drive(scene, "opaque")
+    require(all(launches[k.name] > 0 for k in kernels[:4]),
+            "every K = 1 kernel ran in the opaque path")
+    path_launches = {k.name: launches[k.name] for k in kernels[:4]}
 
     # ---- 5. each kernel against its plain version, main-path shapes -----
     rs = scene.render_scene
     vp = torch.as_tensor(np.asarray(camera.view_projection_transform, np.float32), device=dev)
     cam = torch.as_tensor(np.asarray(camera.position, np.float32), device=dev)
     mrowsT, lights = pipeline.scene_update(rs, meta)
-    ph, pw = config.padded_height, config.padded_width
+    t_count = rs.tri_corner.shape[1]
     records = []
 
-    def record(kernel, err, ms, plain_ms):
+    def record(kernel, err, ms, plain_ms, bound_pair):
+        bound_ms, bound_by = bound_pair
         records.append({"name": kernel.name, "route": "cuda", "source": kernel.source_path,
-                        "replaces": kernel.replaces, "launches": launches[kernel.name],
-                        "max_abs_err": err, "ms": round(ms, 4), "plain_ms": round(plain_ms, 4)})
+                        "replaces": kernel.replaces, "launches": path_launches[kernel.name],
+                        "max_abs_err": err, "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+                        "bound_ms": round(bound_ms, 5), "bound_by": bound_by,
+                        "library_ms": None})
 
     # setup
     args_setup = (rs.tri_corner, mrowsT, vp, width, height)
@@ -214,8 +325,11 @@ def main() -> int:
         f"not bit-equal {total} of {count}, max |diff| {worst:.3e} "
         f"(tolerance: {SETUP_FLOAT_MISMATCH} of values)")
     require(total <= SETUP_FLOAT_MISMATCH * count, "setup float rows")
+    # reads 9 corner rows, 12 matrix rows and the id row; writes 24 + 4 +
+    # 9 + 2 float rows and one byte
     record(setup_kernel.KERNEL, worst, cuda_ms(lambda: setup_kernel.setup_pack(*args_setup), 50),
-           cuda_ms(lambda: setup_kernel.setup_pack_plain(*args_setup), 3))
+           cuda_ms(lambda: setup_kernel.setup_pack_plain(*args_setup), 3),
+           bound(t_count * (22 * 4 + 39 * 4 + 1), t_count * SETUP_OPS))
 
     # raster (full frame)
     setup = got
@@ -234,7 +348,8 @@ def main() -> int:
         f"bit-equal)")
     require(id_bad <= RASTER_ID_MISMATCH * ids.numel() and d_bad == 0, "raster")
     record(raster.KERNEL, d_err, cuda_ms(lambda: raster.rasterize(*r_args), 10),
-           cuda_ms(lambda: raster.rasterize_plain(*r_args), 2))
+           cuda_ms(lambda: raster.rasterize_plain(*r_args), 2),
+           raster_bound(stream, ph, pw, config.msaa_samples, 1))
 
     # shade table
     t_args = (setup["edge9"], rs.tri_corner, rs.tri_static_cols, setup["anchor2"], mrowsT)
@@ -244,8 +359,11 @@ def main() -> int:
     log(f"shade table: {tuple(table.shape)}, not bit-equal {n_bad} of {table.numel()}, "
         f"max |diff| {t_err:.3e} (tolerance: {TABLE_MISMATCH} of values)")
     require(n_bad <= TABLE_MISMATCH * table.numel(), "shade table")
+    # reads 9 edge, 36 corner, 15 material, 2 anchor and 12 matrix rows;
+    # writes a 64-float row
     record(shade_table.KERNEL, t_err, cuda_ms(lambda: shade_table.build_shade_table(*t_args), 50),
-           cuda_ms(lambda: shade_table.build_shade_table_plain(*t_args), 3))
+           cuda_ms(lambda: shade_table.build_shade_table_plain(*t_args), 3),
+           bound(t_count * ((9 + 36 + 15 + 2 + 12) * 4 + 64 * 4), t_count * TABLE_OPS))
 
     # shade + resolve (all pixels)
     tri, frac = pipeline.pixel_winner(ids, depth)
@@ -263,23 +381,110 @@ def main() -> int:
         f"(tolerance: step <= {SHADE_STEP} on <= {SHADE_MISMATCH} of pixels)")
     require(int(step.max()) <= SHADE_STEP and n_step <= SHADE_MISMATCH * packed.numel(), "shade")
     record(shade_kernel.KERNEL, float(step.max()), cuda_ms(lambda: shade_kernel.shade_resolve(*s_args), 20),
-           cuda_ms(lambda: shade_kernel.shade_resolve_plain(*s_args), 3))
+           cuda_ms(lambda: shade_kernel.shade_resolve_plain(*s_args), 3),
+           shade_bound(tri, sx, sy, table, config.max_anisotropy, meta.num_lights, 12, 4))
 
     # the frame the main path produced equals these stages' output
-    frame_again = torch.stack([((packed.reshape(ph, pw)[:height, :width] >> (8 * c)) & 0xFF)
-                               .to(torch.uint8) for c in range(3)]).cpu().numpy()
+    frame_again = present.encode_rgb(packed, config).cpu().numpy()
     require(np.array_equal(frame_again, still), "stage-by-stage frame == Scene frame")
 
-    # ---- 6. a small frame: card kernels vs the CPU plain path -----------
+    # ---- 6. the opaque scene at a forced peel_layers=2 --------------------
+    forced = Scene.from_render_scene(rs, meta, config.replace(peel_layers=2), camera)
+    require(forced.frame_program.layers == 2, "forced K = 2")
+    still2 = forced.render_still()
+    fd = np.abs(still2.astype(np.int16) - still).max(axis=0)
+    log(f"forced peel_layers=2 vs K = 1 frame: max diff {int(fd.max())}, off at "
+        f"{int((fd > 0).sum())} of {fd.size} pixels (tolerance: 1 on {FORCED_K2_MISMATCH})")
+    require(fd.max() <= 1 and (fd > 0).mean() <= FORCED_K2_MISMATCH, "forced K = 2 frame")
+
+    # ---- 7. the translucent path ------------------------------------------
+    set_blend(assets)
+    t0 = time.perf_counter()
+    scene_t = Scene(assets, config, camera=camera, device=dev)
+    torch.cuda.synchronize()
+    meta_t = scene_t.meta
+    layers = scene_t.frame_program.layers
+    log(f"translucent scene: peel layers {meta_t.peel_layers} (K = {layers}); flatten+upload "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(layers == 8, "the translucent sponza renders K = 8 layers")
+    still_t, launches_t = drive(scene_t, "translucent")
+    require(all(launches_t[k.name] > 0 for k in (setup_kernel.KERNEL, raster.KERNEL_LAYERS,
+                                                  shade_table.KERNEL, shade_kernel.KERNEL_LAYER)),
+            "every K-layer kernel ran in the translucent path")
+    path_launches.update({k: launches_t[k] for k in ("raster_layers", "shade_layer")})
+
+    rs_t = scene_t.render_scene
+    mrowsT_t, lights_t = pipeline.scene_update(rs_t, meta_t)
+    setup_t = setup_kernel.setup_pack(rs_t.tri_corner, mrowsT_t, vp, width, height)
+    perm_t = raster.stream_perm(setup_t["bbox_rows"], setup_t["valid"], chunk=config.pallas_chunk)
+    stream_t = raster.raster_stream(setup_t["tri_data"], setup_t["bbox_rows"], perm_t,
+                                    chunk=config.pallas_chunk)
+    rl_args = (*stream_t, ph, pw, config.msaa_samples, layers)
+    ids_t, depth_t = raster.rasterize(*rl_args)
+    ids_tp, depth_tp = raster.rasterize_plain(*rl_args)
+    id_bad = int((ids_t != ids_tp).sum())
+    same = ids_t == ids_tp
+    d_bad, d_err = bits_mismatch(depth_t[same], depth_tp[same])
+    cover = [round(float((ids_t[l] >= 0).float().mean()), 4) for l in range(layers)]
+    log(f"raster K = {layers}: {ids_t.numel()} (layer, sample) entries, covered share per "
+        f"layer {cover}; id differs at {id_bad}, depth not bit-equal at {d_bad} of the rest, "
+        f"max |depth diff| {d_err:.3e} (tolerance: ids exact, depth bit-equal)")
+    require(id_bad == 0 and d_bad == 0, "K-layer raster")
+    del ids_tp, depth_tp
+    record(raster.KERNEL_LAYERS, d_err, cuda_ms(lambda: raster.rasterize(*rl_args), 10),
+           cuda_ms(lambda: raster.rasterize_plain(*rl_args), 1),
+           raster_bound(stream_t, ph, pw, config.msaa_samples, layers))
+
+    table_t = shade_table.build_shade_table(setup_t["edge9"], rs_t.tri_corner,
+                                            rs_t.tri_static_cols, setup_t["anchor2"], mrowsT_t)
+    tri_t, frac_t = pipeline.pixel_winner(ids_t, depth_t)
+    amode = rs_t.tri_static_cols[13]
+    front = tri_t[0].reshape(ph, pw)[:height, :width]
+    translucent = (front >= 0) & (amode[front.clamp(min=0)] != 0)
+    share = float(translucent.float().mean())
+    second = float((tri_t[1].reshape(ph, pw)[:height, :width] >= 0).float().mean())
+    log(f"translucent: layer-0 winner translucent at {share:.4f} of pixels, layer 1 "
+        f"covered at {second:.4f} (required: >= {TRANSLUCENT_SHARE_MIN})")
+    require(share >= TRANSLUCENT_SHARE_MIN, "translucent share")
+
+    sl_args = (tri_t, sx, sy, table_t, rs_t.quad_pool, cam, lights_t, config.max_anisotropy)
+    rgb_t, alpha_t = shade_kernel.shade_layer(*sl_args)
+    rgb_tp, alpha_tp = shade_kernel.shade_layer_plain(*sl_args)
+    cov = tri_t >= 0
+    got_v = torch.cat([rgb_t.permute(1, 0, 2)[:, cov].reshape(-1), alpha_t[cov]])
+    want_v = torch.cat([rgb_tp.permute(1, 0, 2)[:, cov].reshape(-1), alpha_tp[cov]])
+    n_bad, l_err = bits_mismatch(got_v, want_v)
+    ulp = int(ulp_distance(got_v, want_v).max()) if got_v.numel() else 0
+    zero_ok = bool((rgb_t.permute(1, 0, 2)[:, ~cov] == 0).all() and (alpha_t[~cov] == 0).all())
+    log(f"shade layer: {tri_t.numel()} (layer, pixel) entries, {int(cov.sum())} covered; "
+        f"values not bit-equal {n_bad} of {got_v.numel()}, max {ulp} ulp, max |diff| "
+        f"{l_err:.3e}; uncovered all zero: {zero_ok} (tolerance: {SHADE_LAYER_MISMATCH} of "
+        f"values, <= {SHADE_LAYER_ULP} ulp)")
+    require(zero_ok and n_bad <= SHADE_LAYER_MISMATCH * got_v.numel()
+            and ulp <= SHADE_LAYER_ULP, "layer shade")
+    record(shade_kernel.KERNEL_LAYER, l_err, cuda_ms(lambda: shade_kernel.shade_layer(*sl_args), 10),
+           cuda_ms(lambda: shade_kernel.shade_layer_plain(*sl_args), 1),
+           shade_bound(tri_t, sx, sy, table_t, config.max_anisotropy, meta_t.num_lights, 8, 16))
+    del rgb_tp, alpha_tp
+
+    packed_t = pipeline.composite_resolve(rgb_t, alpha_t, frac_t, bg)
+    require(np.array_equal(present.encode_rgb(packed_t, config).cpu().numpy(), still_t),
+            "translucent stage-by-stage frame == Scene frame")
+
+    # ---- 8. small frames: card kernels vs the CPU plain path --------------
     small_cfg = RenderConfig(width=256, height=128, msaa_samples=4)
     small_cam = Camera(*CAMERA, ViewFrustumParams(np.radians(45.0), 2.0, 0.1, 1.0e6))
-    small = [sponza_like_asset(columns_per_ring=4, clutter=8, curtains=2, tex_size=64)]
-    f_gpu = Scene(small, small_cfg, camera=small_cam, device=dev).render_still()
-    f_cpu = Scene(small, small_cfg, camera=small_cam, device="cpu").render_still()
-    fd = np.abs(f_gpu.astype(np.int16) - f_cpu).max(axis=0)
-    log(f"small frame card vs CPU plain: max diff {int(fd.max())}, off at "
-        f"{float((fd > 0).mean()):.5f} of pixels (tolerance: 1 on {FRAME_MISMATCH})")
-    require(fd.max() <= 1 and (fd > 0).mean() <= FRAME_MISMATCH, "small frame")
+    for tag in ("opaque", "translucent"):
+        small = [sponza_like_asset(columns_per_ring=4, clutter=8, curtains=2, tex_size=64)]
+        if tag == "translucent":
+            set_blend(small)
+        f_gpu = Scene(small, small_cfg, camera=small_cam, device=dev)
+        f_cpu = Scene(small, small_cfg, camera=small_cam, device="cpu")
+        fd = np.abs(f_gpu.render_still().astype(np.int16) - f_cpu.render_still()).max(axis=0)
+        log(f"small {tag} frame (K = {f_gpu.frame_program.layers}) card vs CPU plain: max diff "
+            f"{int(fd.max())}, off at {float((fd > 0).mean()):.5f} of pixels (tolerance: 1 on "
+            f"{FRAME_MISMATCH})")
+        require(fd.max() <= 1 and (fd > 0).mean() <= FRAME_MISMATCH, f"small {tag} frame")
 
     log(json.dumps({"kernels": records}))
     log(card)

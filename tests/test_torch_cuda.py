@@ -7,8 +7,9 @@ so skip it):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Inputs are the seeded special-case triangles of test_torch_setup.py, the
-small sponza courtyard at 256x128 (every MSAA count), and the hand-computed
-fill-rule geometry of test_torch_raster.py. Tolerance: bit-equal (the
+small sponza courtyard at 256x128 (every MSAA count, K = 1, 2, 4, 8 peel
+layers), the hand-computed fill-rule geometry of test_torch_raster.py and
+a 9-deep stack of equal-depth quads. Tolerance: bit-equal (the
 kernels run the plain versions' operations in the same order, with fused
 multiply-adds at the same places and the same CUDA math library).
 """
@@ -144,6 +145,64 @@ def test_shade_kernel(dev):
         assert torch.equal(got, want), int((got != want).sum())
 
 
+@pytest.mark.parametrize("layers", [2, 4, 8])
+@pytest.mark.parametrize("msaa", [1, 4, 8])
+def test_raster_kernel_layers(dev, msaa, layers):
+    from vktf_tpu_torch.ops import raster
+
+    _rs, _m, _l, _vp, _setup, stream = _stages(dev, msaa)
+    before = raster.KERNEL_LAYERS.launches
+    ids, depth = raster.rasterize(*stream, tp.HEIGHT, tp.WIDTH, msaa, layers)
+    assert raster.KERNEL_LAYERS.launches == before + 1
+    ids_p, depth_p = raster.rasterize_plain(*stream, tp.HEIGHT, tp.WIDTH, msaa, layers)
+    assert ids.shape == (layers, msaa, tp.HEIGHT, tp.WIDTH)
+    assert float((ids[1] >= 0).float().mean()) > 0.1
+    assert torch.equal(ids, ids_p)
+    tp.assert_bits_equal(depth.cpu().numpy(), depth_p.cpu().numpy(), "depth")
+
+
+@pytest.mark.parametrize("msaa", [1, 4, 8])
+def test_raster_kernel_equal_depth_stack(dev, msaa):
+    """A 9-deep stack of equal-depth quads: ties break on draw order and
+    the 9th is cut at K = 8."""
+    from vktf_tpu_torch.ops import raster
+
+    tris = []
+    for q in range(9):
+        x0, x1 = 4 + q, 40 + q
+        tris += [[(x0, 2), (x1, 20), (x1, 2)], [(x0, 2), (x0, 20), (x1, 20)]]
+    s = tp.setup_px(tris, 64, 32)
+    args = [s[k].to(dev) for k in ("tri_data", "bbox_rows", "valid")]
+    stream = raster.raster_stream(args[0], args[1], raster.stream_perm(args[1], args[2]))
+    ids, depth = raster.rasterize(*stream, 32, 64, msaa, 8)
+    ids_p, depth_p = raster.rasterize_plain(*stream, 32, 64, msaa, 8)
+    assert (ids[:, :, 10, 20] // 2 == torch.arange(8, device=dev)[:, None]).all()
+    assert torch.equal(ids, ids_p)
+    tp.assert_bits_equal(depth.cpu().numpy(), depth_p.cpu().numpy(), "depth")
+
+
+def test_shade_layer_kernel(dev):
+    from vktf_tpu_torch.ops import pipeline, raster, shade_kernel, shade_table
+
+    rs, mrowsT, lights, _vp, setup, stream = _stages(dev, 4)
+    ids, depth = raster.rasterize(*stream, tp.HEIGHT, tp.WIDTH, 4, 3)
+    table = shade_table.build_shade_table(setup["edge9"], rs.tri_corner,
+                                          rs.tri_static_cols, setup["anchor2"], mrowsT)
+    tri, _frac = pipeline.pixel_winner(ids, depth)
+    sx, sy = pipeline.pixel_centers(tp.HEIGHT, tp.WIDTH, dev)
+    cam = torch.tensor(tp.CAMERA_POSITION, dtype=torch.float32, device=dev)
+    for aniso in (16.0, 1.0):
+        args = (tri, sx, sy, table, rs.quad_pool, cam, lights, aniso)
+        before = shade_kernel.KERNEL_LAYER.launches
+        rgb, alpha = shade_kernel.shade_layer(*args)
+        assert shade_kernel.KERNEL_LAYER.launches == before + 1
+        rgb_p, alpha_p = shade_kernel.shade_layer_plain(*args)
+        tp.assert_bits_equal(rgb.cpu().numpy(), rgb_p.cpu().numpy(), "rgb")
+        tp.assert_bits_equal(alpha.cpu().numpy(), alpha_p.cpu().numpy(), "alpha")
+        one = shade_kernel.shade_layer(tri[1:2], *args[1:])  # a single layer
+        tp.assert_bits_equal(one[0].cpu().numpy(), rgb[1:2].cpu().numpy(), "rgb layer 1")
+
+
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
     from vktf_tpu_torch.ops import raster, setup_kernel, shade_table
 
@@ -158,3 +217,6 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
                                       setup["anchor2"][:, ::2], mrowsT[:, ::2])
     with pytest.raises(ValueError):  # frame not a multiple of the 16 px block
         raster.rasterize(*stream, 100, 100, 4)
+    for layers in (0, 9):  # the kernel keeps 1..8 layers
+        with pytest.raises(ValueError):
+            raster.rasterize(*stream, tp.HEIGHT, tp.WIDTH, 4, layers)

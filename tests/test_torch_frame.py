@@ -98,11 +98,13 @@ def test_plain_versions_count_no_launches():
     from vktf_tpu_torch.ops import raster, setup_kernel, shade_kernel, shade_table
     from vktf_tpu_torch.scene.scene import Scene
 
-    kernels = (setup_kernel.KERNEL, raster.KERNEL, shade_table.KERNEL,
-               shade_kernel.KERNEL)
+    kernels = (setup_kernel.KERNEL, raster.KERNEL, raster.KERNEL_LAYERS,
+               shade_table.KERNEL, shade_kernel.KERNEL, shade_kernel.KERNEL_LAYER)
     before = [k.launches for k in kernels]
-    scene = Scene(tp.torch_assets("box"), _port_config(), device="cpu")
-    scene.render_still()
+    for layers in (1, 2):
+        scene = Scene(tp.torch_assets("box"), _port_config().replace(peel_layers=layers),
+                      device="cpu")
+        scene.render_still()
     assert [k.launches for k in kernels] == before
 
 
@@ -168,7 +170,6 @@ def test_frame_program_raises_on_unported_scenes():
 
     base = dict(level_slices=((0, 1),), num_lights=0, num_instances=1,
                 num_triangles=1, num_vertices=3)
-    for extra in ({"peel_layers": 2}, {"mixed_samplers": True},
-                  {"mirror_wrap": True}):
+    for extra in ({"mixed_samplers": True}, {"mirror_wrap": True}):
         with pytest.raises(ValueError):
             FrameProgram(SceneMeta(**base, **extra), _port_config())

@@ -55,18 +55,25 @@ def _jax_native_mips(enabled: bool):
 
 def jax_assets(name: str, native: bool = False):
     from vktf_tpu.models.scenes import build_preset, sponza_like_asset
+    # the translucent courtyard: set_blend touches only the glTF material
+    # fields both packages share, so it edits the JAX assets too
+    from vktf_tpu_torch.models.scenes import set_blend
 
     with _jax_native_mips(native):
         if name == "sponza_small":
             return [sponza_like_asset(**SMALL_SPONZA)]
+        if name == "sponza_small_blend":
+            return set_blend([sponza_like_asset(**SMALL_SPONZA)])
         return build_preset(name)
 
 
 def torch_assets(name: str):
-    from vktf_tpu_torch.models.scenes import build_preset, sponza_like_asset
+    from vktf_tpu_torch.models.scenes import build_preset, set_blend, sponza_like_asset
 
     if name == "sponza_small":
         return [sponza_like_asset(**SMALL_SPONZA)]
+    if name == "sponza_small_blend":
+        return set_blend([sponza_like_asset(**SMALL_SPONZA)])
     return build_preset(name)
 
 
@@ -97,12 +104,13 @@ def jax_leaves(name: str, native: bool = False) -> dict:
     return {f: np.asarray(getattr(scene, f)) for f in SCENE_LEAVES}
 
 
-def jax_config(msaa: int = 4, width: int = WIDTH, height: int = HEIGHT):
+def jax_config(msaa: int = 4, width: int = WIDTH, height: int = HEIGHT,
+               peel_layers=None):
     from vktf_tpu.config import RenderConfig
 
     return RenderConfig(width=width, height=height, msaa_samples=msaa,
                         backend="pallas", pallas_interpret=True,
-                        shade_skip_mode=False)
+                        shade_skip_mode=False, peel_layers=peel_layers)
 
 
 def cameras(width: int = WIDTH, height: int = HEIGHT):
@@ -116,11 +124,20 @@ def cameras(width: int = WIDTH, height: int = HEIGHT):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_program(name: str, msaa: int = 4):
+def jax_program(name: str, msaa: int = 4, peel_layers=None):
     from vktf_tpu.ops.pipeline import PallasFrameProgram
 
     _scene, meta = jax_scene(name)
-    return PallasFrameProgram(meta, jax_config(msaa))
+    return PallasFrameProgram(meta, jax_config(msaa, peel_layers=peel_layers))
+
+
+def port_meta(jmeta):
+    """The port's SceneMeta carrying the JAX scene's static facts."""
+    from vktf_tpu_torch.scene.flatten import SceneMeta
+
+    return SceneMeta(**{f: getattr(jmeta, f) for f in (
+        "level_slices", "num_lights", "num_instances", "num_triangles",
+        "num_vertices", "peel_layers", "mixed_samplers", "mirror_wrap")})
 
 
 @functools.lru_cache(maxsize=None)

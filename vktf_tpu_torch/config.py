@@ -1,18 +1,22 @@
 """Render configuration of the PyTorch + CUDA port.
 
 The counterpart of ``vktf_tpu/config.py`` for the slice the port renders:
-pixel-rate shading, one opaque peel layer, the fused-mip texture pool and
-the exact planar RGB present. Only the fields this pipeline honours exist
-here, and an explicit value it cannot honour raises instead of falling back
-silently.
+pixel-rate shading, K = 1..8 depth-peel layers (one for opaque scenes, the
+scene's estimate or ``peel_layers`` for MASK/BLEND ones), the fused-mip
+texture pool and the exact planar RGB present. Only the fields this
+pipeline honours exist here, and an explicit value it cannot honour raises
+instead of falling back silently.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 _SUPPORTED_MSAA = (8, 4, 2, 1)
+
+# The raster kernel keeps at most this many nearest fragments per sample.
+PEEL_LAYERS_MAX = 8
 
 # Vulkan standard sample locations (pixel-relative), spec table "Standard
 # sample locations" — the same table as vktf_tpu/ops/raster_xla.py.
@@ -56,6 +60,10 @@ class RenderConfig:
     # Relative view-projection change (Frobenius) above which the cached
     # Morton stream permutation is recomputed; 0 re-sorts every frame.
     resort_threshold: float = 0.03
+    # Depth-peel layer count. None = the scene's estimate
+    # (SceneMeta.peel_layers: 1 + translucent instances, at most
+    # PEEL_LAYERS_MAX); an explicit 1..8 forces K.
+    peel_layers: Optional[int] = None
     # Only "pixel" (shade once per pixel, resolve by coverage) is ported.
     shading_rate: str = "pixel"
     # Only the exact planar (3, H, W) u8 frame is ported.
@@ -84,6 +92,9 @@ class RenderConfig:
                              "the raster kernel stages 256-triangle chunks")
         if self.max_anisotropy < 1.0:
             raise ValueError("max_anisotropy must be >= 1")
+        if self.peel_layers is not None and not 1 <= self.peel_layers <= PEEL_LAYERS_MAX:
+            raise ValueError(f"peel_layers must be None or 1..{PEEL_LAYERS_MAX}, "
+                             f"got {self.peel_layers}")
 
     @property
     def tiles_y(self) -> int:
@@ -100,6 +111,11 @@ class RenderConfig:
     @property
     def padded_width(self) -> int:
         return self.tiles_x * self.tile_shape[1]
+
+    def resolved_peel_layers(self, scene_layers: int) -> int:
+        """Effective depth-peel K: the explicit override, else the scene's
+        estimate."""
+        return self.peel_layers if self.peel_layers is not None else scene_layers
 
     def replace(self, **kwargs) -> "RenderConfig":
         return dataclasses.replace(self, **kwargs)

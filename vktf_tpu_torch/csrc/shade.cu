@@ -1,14 +1,17 @@
-// Deferred shade + MSAA resolve (ops/shade_kernel.py).
+// Deferred shade: MSAA resolve form and depth-peel layer form
+// (ops/shade_kernel.py).
 //
-// Replaces vktf_tpu/ops/shade_kernel.py `_shade_resolve_kernel` (body
-// `_shade_block_body`, fused-pool branch, one tap), launched by
-// `_shade_final_call` via `shade_final_chunk`. One thread per pixel: it
+// Replaces vktf_tpu/ops/shade_kernel.py `_shade_resolve_kernel` and
+// `_shade_layer_kernel` (body `_shade_block_body`, fused-pool branch, one
+// tap), launched by `_shade_final_call` via `shade_final_chunk`. One thread
+// per pixel (per layer and pixel in the layer form): it
 // reads its winning triangle's 256-byte shade-table row and the one
 // fused-mip pool row that holds both trilinear levels of all three material
 // textures, evaluates the planes at the pixel centre, filters, shades over
-// the lights and writes the resolved, sRGB-encoded pixel as r | g<<8 | b<<16.
-// Both row gathers happen here, so no per-pixel phase-boundary tensor
-// exists. The math is ops/shade_kernel.py shade_resolve_plain op for op.
+// the lights, then either writes the resolved, sRGB-encoded pixel as
+// r | g<<8 | b<<16 (resolve form) or its linear radiance and alpha (layer
+// form). Both row gathers happen here, so no per-pixel phase-boundary
+// tensor exists.
 #include "common.cuh"
 
 namespace {
@@ -139,19 +142,19 @@ __device__ __forceinline__ void material_brdf(const float base[3], float metalli
   }
 }
 
-__global__ void shade_kernel(const int* __restrict__ tri, const float* __restrict__ sx_in,
-                             const float* __restrict__ sy_in, const float* __restrict__ frac_in,
-                             const float* __restrict__ table, const uint32_t* __restrict__ pool,
-                             const float* __restrict__ params, int* __restrict__ out, int n,
-                             int num_lights, int pool_rows, float max_anisotropy,
-                             float max_anisotropy2) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const int t = tri[p];
+// The fragment body shared by both forms: the pixel's radiance over the
+// lights and its effective alpha (0 when uncovered). The math is
+// ops/shade_kernel.py _fragment_plain op for op.
+__device__ __forceinline__ void shade_fragment(int t, float sx, float sy,
+                                               const float* __restrict__ table,
+                                               const uint32_t* __restrict__ pool,
+                                               const float* __restrict__ params, int num_lights,
+                                               int pool_rows, float max_anisotropy,
+                                               float max_anisotropy2, float radiance[3],
+                                               float* alpha_out) {
   const bool covered = t >= 0;
   const float* row = table + (size_t)max(t, 0) * kRow;
   auto col = [&](int c) { return __ldg(row + c); };
-  const float sx = sx_in[p], sy = sy_in[p];
 
   const float sxa = sx - col(C_AX);
   const float sya = sy - col(C_AY);
@@ -250,7 +253,7 @@ __global__ void shade_kernel(const int* __restrict__ tri, const float* __restric
   const V3 view = rnorm(params[0] - wp.x, params[1] - wp.y, params[2] - wp.z);
 
   // BRDF over the lights (fragment.glsl's light loop)
-  float radiance[3] = {0.0f, 0.0f, 0.0f};
+  radiance[0] = radiance[1] = radiance[2] = 0.0f;
   for (int i = 0; i < num_lights; ++i) {
     const float* light = params + 8 + 8 * i;
     const float hp = light[3] != 0.0f ? 1.0f : 0.0f;
@@ -272,11 +275,35 @@ __global__ void shade_kernel(const int* __restrict__ tri, const float* __restric
     }
   }
 
-  // glTF alpha mode, composite, coverage resolve, sRGB encode, pack
+  // glTF alpha mode
   const float a = base_rgba[3];
   const float amode = col(C_AMODE);
-  float alpha = amode == 0.0f ? 1.0f : (amode == 1.0f ? (a >= col(C_ACUT) ? 1.0f : 0.0f) : a);
-  if (!covered) alpha = 0.0f;
+  const float alpha = amode == 0.0f ? 1.0f : (amode == 1.0f ? (a >= col(C_ACUT) ? 1.0f : 0.0f) : a);
+  *alpha_out = covered ? alpha : 0.0f;
+}
+
+// sRGB encode and u8 quantization of a value in [0, 1]
+__device__ __forceinline__ int srgb_u8(float v) {
+  const float srgb =
+      v <= 0.0031308f ? v * 12.92f : fma_rn(1.055f, powf(v, (float)(1.0 / 2.4)), -0.055f);
+  return (int)fma_rn(srgb, 255.0f, 0.5f);
+}
+
+// Resolve form (one layer): composite over the clear colour, coverage
+// resolve, sRGB encode, packed r | g << 8 | b << 16.
+__global__ void shade_kernel(const int* __restrict__ tri, const float* __restrict__ sx_in,
+                             const float* __restrict__ sy_in, const float* __restrict__ frac_in,
+                             const float* __restrict__ table, const uint32_t* __restrict__ pool,
+                             const float* __restrict__ params, int* __restrict__ out, int n,
+                             int num_lights, int pool_rows, float max_anisotropy,
+                             float max_anisotropy2) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const int t = tri[p];
+  float radiance[3], alpha;
+  shade_fragment(t, sx_in[p], sy_in[p], table, pool, params, num_lights, pool_rows,
+                 max_anisotropy, max_anisotropy2, radiance, &alpha);
+  const bool covered = t >= 0;
   const float frac = frac_in[p];
   int packed = 0;
 #pragma unroll
@@ -285,12 +312,34 @@ __global__ void shade_kernel(const int* __restrict__ tri, const float* __restric
     const float rgb = covered ? radiance[c] : 0.0f;
     const float comp = fma_rn(rgb, alpha, bg * (1.0f - alpha));
     const float resolved = fma_rn(comp, frac, bg * (1.0f - frac));
-    const float vv = tmin(tmax(resolved, 0.0f), 1.0f);
-    const float srgb = vv <= 0.0031308f ? vv * 12.92f
-                                        : fma_rn(1.055f, powf(vv, (float)(1.0 / 2.4)), -0.055f);
-    packed |= ((int)fma_rn(srgb, 255.0f, 0.5f)) << (8 * c);
+    packed |= srgb_u8(tmin(tmax(resolved, 0.0f), 1.0f)) << (8 * c);
   }
   out[p] = packed;
+}
+
+// Layer form: every (layer, pixel) of a (K, N) id array, one thread each;
+// linear radiance (K, 3, N) and effective alpha (K, N) for the host-side
+// composite. An uncovered entry writes zeros and returns.
+__global__ void shade_layer_kernel(const int* __restrict__ tri, const float* __restrict__ sx_in,
+                                   const float* __restrict__ sy_in,
+                                   const float* __restrict__ table,
+                                   const uint32_t* __restrict__ pool,
+                                   const float* __restrict__ params, float* __restrict__ out_rgb,
+                                   float* __restrict__ out_alpha, int n, int layers,
+                                   int num_lights, int pool_rows, float max_anisotropy,
+                                   float max_anisotropy2) {
+  const size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= (size_t)n * layers) return;
+  const size_t l = q / n;
+  const size_t p = q - l * n;
+  const int t = tri[q];
+  float radiance[3] = {0.0f, 0.0f, 0.0f}, alpha = 0.0f;
+  if (t >= 0)
+    shade_fragment(t, sx_in[p], sy_in[p], table, pool, params, num_lights, pool_rows,
+                   max_anisotropy, max_anisotropy2, radiance, &alpha);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) out_rgb[(l * 3 + c) * n + p] = radiance[c];
+  out_alpha[q] = alpha;
 }
 
 }  // namespace
@@ -305,5 +354,19 @@ VKTF_EXPORT int vktf_shade_resolve(const int* tri, const float* sx, const float*
   shade_kernel<<<blocks, threads, 0, stream>>>(tri, sx, sy, frac, table, pool, params, out, n,
                                                num_lights, pool_rows, max_anisotropy,
                                                max_anisotropy2);
+  return launch_status();
+}
+
+VKTF_EXPORT int vktf_shade_layer(const int* tri, const float* sx, const float* sy,
+                                 const float* table, const uint32_t* pool, const float* params,
+                                 float* out_rgb, float* out_alpha, int n, int layers,
+                                 int num_lights, int pool_rows, float max_anisotropy,
+                                 float max_anisotropy2, cudaStream_t stream) {
+  const int threads = 128;
+  const long long total = (long long)n * layers;
+  const int blocks = (int)((total + threads - 1) / threads);
+  shade_layer_kernel<<<blocks, threads, 0, stream>>>(tri, sx, sy, table, pool, params, out_rgb,
+                                                     out_alpha, n, layers, num_lights, pool_rows,
+                                                     max_anisotropy, max_anisotropy2);
   return launch_status();
 }

@@ -407,6 +407,21 @@ def sponza_like_asset(
     return b.asset
 
 
+def set_blend(assets):
+    """The translucent sponza: make the curtain and clutter materials BLEND
+    with base-colour alpha 0.5 (16 + 96 instances in the full preset, so the
+    scene's peel estimate clamps to 8). In place; returns assets."""
+    for asset in assets:
+        for material in asset.materials:
+            if material.name and material.name.startswith(("curtain-", "clutter-")):
+                material.alpha_mode = "BLEND"
+                pbr = material.pbr_metallic_roughness
+                factor = np.array(pbr.base_color_factor, np.float32)
+                factor[3] = 0.5
+                pbr.base_color_factor = factor
+    return assets
+
+
 PRESETS = {
     "box": lambda: [box_asset()],
     "sponza": lambda: [sponza_like_asset()],

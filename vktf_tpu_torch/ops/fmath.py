@@ -12,6 +12,12 @@ version writes the fused operations out with ``fma`` below, and the CUDA
 kernels (built with ``--fmad=false``, so the compiler fuses nothing on its
 own) call ``__fmaf_rn`` at exactly the same places, so a kernel and its
 plain version round alike.
+
+One caller runs on the card too: the depth-peel composite and resolve
+(``ops/pipeline.composite_resolve``), which has no kernel of its own, so
+its float64 ``fma`` passes over the (K, 3, N) layer outputs lie on the
+translucent frame's path (its largest stage; folding them into the layer
+shade kernel is queued in ROADMAP.md).
 """
 
 from __future__ import annotations

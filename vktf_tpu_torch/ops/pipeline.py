@@ -1,22 +1,39 @@
 """The frame program: scene update, setup, stream order, raster, shade
-table, per-pixel winner and the fused shade + resolve, on one device.
+table, per-pixel winner, shade and resolve, on one device.
 
 Counterpart of ``vktf_tpu/ops/pipeline.py`` ``PallasFrameProgram`` at the
-configuration the port renders (pixel-rate shading, one opaque peel layer,
-fused-mip pool, one texture tap). Stages, in order:
+configuration the port renders (pixel-rate shading, K = 1..8 depth-peel
+layers, fused-mip pool, one texture tap). K is
+``config.resolved_peel_layers(meta.peel_layers)``: 1 for opaque scenes,
+1 + the translucent instances (at most 8) for MASK/BLEND ones. Stages, in
+order:
 
   1. scene update (cached per scene): node transforms, world lights, the
      (16, T) per-triangle instance-matrix rows;
   2. setup kernel (``ops/setup_kernel.py``), once per frame;
   3. screen-Morton stream order (``ops/raster.stream_perm``), kept across
      frames until the camera moves past ``config.resort_threshold``;
-  4. raster prologue (``ops/raster.raster_stream``) and raster kernel;
+  4. raster prologue (``ops/raster.raster_stream``) and raster kernel,
+     which keeps the K nearest (depth, id) fragments of every sample;
   5. shade-table kernel (``ops/shade_table.py``);
-  6. phase A in plain torch: the per-pixel winner (min depth, then min id)
-     and the sample coverage fraction;
-  7. shade + resolve kernel (``ops/shade_kernel.py``), which gathers the
-     table and pool rows itself;
+  6. phase A in plain torch: per layer, the per-pixel winner (min depth,
+     then min id) and layer 0's sample coverage fraction;
+  7. K = 1: the fused shade + resolve kernel (``ops/shade_kernel.py``),
+     which gathers the table and pool rows itself. K > 1: the layer shade
+     kernel, one launch over all K layers (linear radiance and alpha per
+     layer and pixel), then in plain torch the front-to-back composite
+     over the clear colour, the coverage resolve and the sRGB encode
+     (``composite_resolve``; XLA ops outside any kernel in the JAX
+     package, too);
   8. present: unpack the bytes and crop the tile padding (``ops/present.py``).
+
+On the card (NVIDIA H100 80GB HBM3 at a 700 W power limit, chip_smoke.py,
+sponza 1080p 4x MSAA, CUDA-event stage medians): the opaque frame takes
+2.8 ms; the translucent sponza at K = 8 9.5 ms, of which the two K-layer
+kernels take 1.25 + 1.13 ms and the plain-torch stages around them most of
+the rest (composite 3.3 ms, K-layer winner 1.2 ms: passes over the
+(K, 3, N) layer outputs and the (K, S, H, W) raster output, each bound by
+memory traffic).
 
 The JAX program ran the setup kernel twice (a second pass over
 Morton-permuted inputs) and split the shade into two programs; both were
@@ -33,6 +50,7 @@ import torch
 
 from vktf_tpu_torch.config import RenderConfig
 from vktf_tpu_torch.ops import present, raster, setup_kernel, shade_kernel, shade_table
+from vktf_tpu_torch.ops.fmath import f32, fma
 from vktf_tpu_torch.ops.vertex import propagate_transforms
 from vktf_tpu_torch.scene.flatten import RenderScene, SceneMeta
 
@@ -64,17 +82,37 @@ def scene_update(scene: RenderScene, meta: SceneMeta):
 
 
 def pixel_winner(ids, depth):
-    """Phase A: per pixel, the sample winner (min depth, then min id among
-    the covered samples; -1 when none) and the covered-sample fraction.
-    ids/depth (S, H, W) -> (tri (H*W,) i32, frac (H*W,) f32)."""
-    d_min = depth.amin(dim=0, keepdim=True)
+    """Phase A: per pixel (and per peel layer), the sample winner (min
+    depth, then min id among the covered samples; -1 when none) and the
+    covered-sample fraction of layer 0.
+    ids/depth (S, H, W) -> (tri (H*W,) i32, frac (H*W,) f32);
+    (K, S, H, W) -> (tri (K, H*W) i32, frac (H*W,) f32)."""
+    sample_dim = ids.dim() - 3
+    d_min = depth.amin(dim=sample_dim, keepdim=True)
     imax = torch.iinfo(torch.int32).max
     cand = torch.where((depth == d_min) & (ids >= 0), ids,
                        torch.full_like(ids, imax))
-    tri = cand.amin(dim=0)
+    tri = cand.amin(dim=sample_dim)
     tri = torch.where(tri == imax, torch.full_like(tri, -1), tri)
-    frac = (ids >= 0).float().mean(dim=0)
-    return tri.reshape(-1), frac.reshape(-1)
+    first = ids if ids.dim() == 3 else ids[0]
+    frac = (first >= 0).float().mean(dim=0)
+    return tri.reshape(*ids.shape[:sample_dim], -1), frac.reshape(-1)
+
+
+def composite_resolve(rgb, alpha, frac, background):
+    """The depth-peel tail (vktf_tpu/ops/pipeline.py:502-509): the K shaded
+    layers composited front to back over the clear colour, the coverage
+    resolve, sRGB encode and u8 quantization, packed r | g << 8 | b << 16.
+    rgb (K, 3, N), alpha (K, N), frac (N,), background (3,) -> (N,) i32.
+    XLA fuses each a * b + c * d with the left product (ops/fmath.py)."""
+    one, zero = f32(1.0, rgb), f32(0.0, rgb)
+    bg = background.to(torch.float32)[:, None]
+    comp = bg.expand(rgb.shape[1:])
+    for l in reversed(range(rgb.shape[0])):
+        comp = fma(rgb[l], alpha[l], comp * (one - alpha[l]))
+    resolved = fma(comp, frac, bg * (one - frac))
+    u8 = shade_kernel.linear_to_srgb_u8(torch.minimum(torch.maximum(resolved, zero), one))
+    return u8[0] | (u8[1] << 8) | (u8[2] << 16)
 
 
 def pixel_centers(height: int, width: int, device):
@@ -113,15 +151,12 @@ class FrameProgram:
     CPU, the CUDA kernels on a card)."""
 
     def __init__(self, meta: SceneMeta, config: RenderConfig):
-        if meta.peel_layers != 1:
-            raise ValueError(
-                f"the scene needs {meta.peel_layers} depth-peel layers; only "
-                "one opaque layer is ported")
         if meta.mixed_samplers or meta.mirror_wrap:
             raise ValueError("mixed-sampler and mirror-wrap scenes need the "
                              "two-gather texture path, which is not ported")
         self.meta = meta
         self.config = config
+        self.layers = config.resolved_peel_layers(meta.peel_layers)
         self._scene_key = None
         self._scene_state = None
         self._perm = None
@@ -179,19 +214,28 @@ class FrameProgram:
             perm = self._maybe_resort(setup, view_projection)
             stream = raster.raster_stream(setup["tri_data"], setup["bbox_rows"],
                                           perm, chunk=cfg.pallas_chunk)
-            ids, depth = raster.rasterize(*stream, ph, pw, cfg.msaa_samples)
+            ids, depth = raster.rasterize(*stream, ph, pw, cfg.msaa_samples,
+                                          self.layers)
         with self._stage("shade_table"):
             table = shade_table.build_shade_table(
                 setup["edge9"], scene.tri_corner, scene.tri_static_cols,
                 setup["anchor2"], mrowsT)
         with self._stage("winner"):
             tri, frac = pixel_winner(ids, depth)
-        with self._stage("shade"):
-            background = torch.tensor(cfg.clear_color[:3], dtype=torch.float32,
-                                      device=dev)
-            packed = shade_kernel.shade_resolve(
-                tri, *self._centers, frac, table, scene.quad_pool, cam, lights,
-                background, cfg.max_anisotropy)
+        background = torch.tensor(cfg.clear_color[:3], dtype=torch.float32,
+                                  device=dev)
+        if self.layers == 1:
+            with self._stage("shade"):
+                packed = shade_kernel.shade_resolve(
+                    tri, *self._centers, frac, table, scene.quad_pool, cam, lights,
+                    background, cfg.max_anisotropy)
+        else:
+            with self._stage("shade"):
+                rgb, alpha = shade_kernel.shade_layer(
+                    tri, *self._centers, table, scene.quad_pool, cam, lights,
+                    cfg.max_anisotropy)
+            with self._stage("composite"):
+                packed = composite_resolve(rgb, alpha, frac, background)
         with self._stage("present"):
             frame = present.encode_rgb(packed, cfg)
         return frame

@@ -3,7 +3,8 @@ plain version.
 
 Replaces ``vktf_tpu/ops/raster_pallas.py``: ``stream_perm`` (screen-Morton
 stream order), the prologue of ``rasterize_pallas`` (per-group slim flag,
-group and chunk bboxes) and the kernel ``_raster_kernel`` at one layer.
+group and chunk bboxes) and the kernel ``_raster_kernel`` at K = 1..8
+depth-peel layers.
 
 Semantics, per MSAA sample of every pixel: among the stream's valid
 triangles whose clamped screen bbox contains the pixel, the sample is
@@ -12,8 +13,11 @@ covered when all three anchored edge functions pass the top-left fill rule
 the float bits against the row-16..18 threshold), and — unless the
 triangle's group carries the slim flag, whose setup proof makes the tests
 redundant — ``w_recip > 0`` and ``0 <= depth <= 1`` (one unsigned compare).
-The winner is the lexicographic minimum of (depth, draw-order id), so
-stream order never changes the output. Background is id -1, depth 1.0.
+Layer l of the sample is its (l+1)-th lexicographically smallest (depth,
+draw-order id) fragment (layer 0 is the winner), so stream order never
+changes the output. An empty layer is id -1, depth 1.0. The TPU kernel
+keeps the K layers by a sorted insertion (raster_pallas.py:831-852); each
+triangle meets a sample once, so that list is exactly the K smallest keys.
 
 The TPU kernel's lane interleave, column supertiles, row windows and
 SMEM chunk DMAs are layout devices of that chip and are not copied; its
@@ -22,19 +26,27 @@ that never adds coverage (a triangle's edge functions pass only inside its
 bbox, which is inflated past every sample the triangle can cover).
 
 CUDA design (``csrc/raster.cu``): one 256-thread block per 16x16-pixel
-block, one thread per pixel holding its S samples' (depth, id) in
-registers — one owner per sample, so no atomics and nothing can race (the
-TPU kernel's overlapping accumulator windows raced on hardware,
+block, one thread per pixel holding its S samples' K sorted (depth, id)
+slots in registers — one owner per sample, so no atomics and nothing can
+race (the TPU kernel's overlapping accumulator windows raced on hardware,
 raster_pallas.py:413-418). The block tests all chunk bboxes, 256 at a time
 (one per thread), stages each hit chunk's 32 rows (32 KB) in shared
 memory, skips groups and then triangles whose bbox misses the block, and
 each thread tests its pixel against the triangle's bbox before evaluating
-its samples. Bound on the card: the chunk staging through L2 and the
-per-(pixel, triangle) evaluations of triangles whose bbox covers the pixel
-(~20 flops per sample); the three bbox skips keep both near the triangles
-that overlap each block. Measured 0.62 ms per launch at sponza 1080p 4x
-MSAA (8.36 M samples) on an NVIDIA H100 80GB HBM3 at a 700 W power limit
-(chip_smoke.py), the plain version 25.7 ms.
+its samples; a passing fragment nearer than the last slot is inserted by
+the fully unrolled bubble-down of raster_pallas.py:831-852. The kernel is
+templated on (S, K) with K rounded up to 1, 2, 4 or 8. ptxas (sm_90a)
+reports no spill for any (S, K): 48 registers at S = 4, K = 1, 128 at
+S = 4, K = 8, 222 at S = 8, K = 8, so the accumulators stay in registers
+and no shared-memory variant exists. Bound on the card: the chunk staging
+through L2 and the per-(pixel, triangle) evaluations of triangles whose
+bbox covers the pixel (~20 flops per sample), and at K > 1 the K-fold
+output writes. Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+(chip_smoke.py), sponza 1080p 4x MSAA: K = 1 0.62 ms per launch (8.36 M
+samples; least possible 0.023 ms, bytes), plain version 30.9 ms; the
+translucent sponza at K = 8 1.25 ms (66.8 M layer-samples; least possible
+0.163 ms, bytes), plain version 241 ms. The plain version runs K rounds of
+scatter_reduce("amin"), round l keeping only keys above round l-1's.
 """
 
 from __future__ import annotations
@@ -43,13 +55,19 @@ import ctypes
 
 import torch
 
-from vktf_tpu_torch.config import SAMPLE_OFFSETS
+from vktf_tpu_torch.config import PEEL_LAYERS_MAX, SAMPLE_OFFSETS
 from vktf_tpu_torch.ops import _cuda
 from vktf_tpu_torch.ops.fmath import f32, fma
 
 KERNEL = _cuda.Kernel(
     "raster", "raster.cu",
     "vktf_tpu/ops/raster_pallas.py:365 (_raster_kernel via rasterize_pallas, pallas_call :1201)",
+)
+# the same kernel keeping K = 2..8 layers (counted apart from K = 1)
+KERNEL_LAYERS = _cuda.Kernel(
+    "raster_layers", "raster.cu",
+    "vktf_tpu/ops/raster_pallas.py:365 (_raster_kernel, K-layer sorted insertion :831-852, "
+    "via rasterize_pallas, pallas_call :1201)",
 )
 
 # triangles per bbox group (the raster kernel's mid-level skip)
@@ -141,20 +159,13 @@ def _order_key(depth):
     return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF) << 32
 
 
-def rasterize_plain(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
-                    msaa_samples: int, *, max_pairs: int = 1 << 22):
-    """Plain-torch version. Enumerates (triangle, pixel) pairs over each
-    valid triangle's bbox in batches of at most max_pairs pixels and keeps
-    the lexicographic (depth, id) minimum per sample with scatter_reduce.
-    chunk_bbox is unused: chunk skipping cannot change the result."""
-    del chunk_bbox
+def _candidates(tri_data, tri_bbox, height: int, width: int, msaa_samples: int,
+                max_pairs: int):
+    """Every passing fragment, in batches: (flat sample index (s, y, x),
+    int64 (depth, id) key). Enumerates (triangle, pixel) pairs over each
+    valid triangle's bbox, at most max_pairs pixels per batch."""
     dev = tri_data.device
     offsets = SAMPLE_OFFSETS[msaa_samples]
-    s_count = len(offsets)
-    n = s_count * height * width
-    sentinel = torch.iinfo(torch.int64).max
-    best = torch.full((n,), sentinel, dtype=torch.int64, device=dev)
-
     idx = torch.nonzero(tri_data[15] >= 0.0).flatten()
     x0 = tri_bbox[0, idx].to(torch.int64)
     y0 = tri_bbox[1, idx].to(torch.int64)
@@ -202,30 +213,62 @@ def rasterize_plain(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
             ok = inside & (slim | ((w_recip > zero_f) & in_range))
             # the clear value (1.0, -1) wins every tie at depth 1.0
             ok = ok & (depth < one_f)
-            key = _order_key(depth[ok]) | tri_id[ok]
-            flat = (s * height + py[ok]) * width + px[ok]
-            best.scatter_reduce_(0, flat, key, reduce="amin")
+            yield ((s * height + py[ok]) * width + px[ok],
+                   _order_key(depth[ok]) | tri_id[ok])
         start = stop
 
-    hit = best != sentinel
-    ids = torch.where(hit, best & 0xFFFFFFFF, torch.full_like(best, -1))
-    ordered = best >> 32
+
+def rasterize_plain(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
+                    msaa_samples: int, layers: int = 1, *, max_pairs: int = 1 << 22):
+    """Plain-torch version. Layer l of a sample is the minimum (depth, id)
+    key among its fragments whose key exceeds layer l-1's: K rounds of
+    scatter_reduce("amin") over every fragment (each triangle covers a
+    sample at most once, so the keys are distinct and this is the sorted
+    insertion's K nearest). chunk_bbox is unused: chunk skipping cannot
+    change the result."""
+    del chunk_bbox
+    dev = tri_data.device
+    s_count = len(SAMPLE_OFFSETS[msaa_samples])
+    n = s_count * height * width
+    sentinel = torch.iinfo(torch.int64).max
+    best = []
+    for _ in range(layers):
+        cur = torch.full((n,), sentinel, dtype=torch.int64, device=dev)
+        prev = best[-1] if best else None
+        # once a layer is empty everywhere, so is every deeper one
+        if prev is None or bool((prev != sentinel).any()):
+            for flat, key in _candidates(tri_data, tri_bbox, height, width,
+                                         msaa_samples, max_pairs):
+                if prev is not None:
+                    deeper = key > prev[flat]
+                    flat, key = flat[deeper], key[deeper]
+                cur.scatter_reduce_(0, flat, key, reduce="amin")
+        best.append(cur)
+
+    keys = torch.stack(best)
+    hit = keys != sentinel
+    ids = torch.where(hit, keys & 0xFFFFFFFF, torch.full_like(keys, -1))
+    ordered = keys >> 32
     bits = torch.where(ordered >= 0, ordered, ordered ^ 0x7FFFFFFF).to(torch.int32)
-    depth = torch.where(hit, bits.view(torch.float32), one_f)
-    shape = (s_count, height, width)
+    depth = torch.where(hit, bits.view(torch.float32), f32(1.0, tri_data))
+    shape = (layers, s_count, height, width) if layers > 1 else (s_count, height, width)
     return ids.to(torch.int32).reshape(shape), depth.reshape(shape)
 
 
 def rasterize(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
-              msaa_samples: int):
-    """Per-sample (tri_id (S, H, W) i32, depth (S, H, W) f32) of a stream
-    built by raster_stream. height/width must be multiples of 16. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+              msaa_samples: int, layers: int = 1):
+    """Per-sample (tri_id i32, depth f32) of a stream built by raster_stream:
+    (S, H, W) at layers == 1, else the `layers` nearest fragments of every
+    sample nearest first, (K, S, H, W); an empty layer is (-1, 1.0).
+    height/width must be multiples of 16. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     if height % 16 or width % 16:
         raise ValueError(f"framebuffer {height}x{width} must be a multiple of 16")
+    if not 1 <= layers <= PEEL_LAYERS_MAX:
+        raise ValueError(f"layers must be 1..{PEEL_LAYERS_MAX}, got {layers}")
     if not tri_data.is_cuda:
         return rasterize_plain(tri_data, tri_bbox, chunk_bbox, height, width,
-                               msaa_samples)
+                               msaa_samples, layers)
     t_pad = tri_data.shape[1]
     if t_pad >= 1 << 24:
         raise ValueError("triangle ids ride f32 rows: exact only below 2^24")
@@ -240,19 +283,20 @@ def rasterize(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
     _cuda.require(tri_bbox, "tri_bbox", torch.float32, (8, t_pad), dev)
     _cuda.require(chunk_bbox, "chunk_bbox", torch.float32, (4, n_chunks), dev)
     s_count = len(SAMPLE_OFFSETS[msaa_samples])
-    ids = torch.empty((s_count, height, width), dtype=torch.int32, device=dev)
-    depth = torch.empty((s_count, height, width), dtype=torch.float32, device=dev)
+    shape = (layers, s_count, height, width) if layers > 1 else (s_count, height, width)
+    ids = torch.empty(shape, dtype=torch.int32, device=dev)
+    depth = torch.empty(shape, dtype=torch.float32, device=dev)
     offsets = (ctypes.c_float * (2 * s_count))(
         *[c for xy in SAMPLE_OFFSETS[msaa_samples] for c in xy])
     lib = _cuda.library(KERNEL.source)
     fn = lib.vktf_raster
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
-    KERNEL.launches += 1
+    (KERNEL if layers == 1 else KERNEL_LAYERS).launches += 1
     _cuda.check(fn(_cuda.ptr(tri_data), _cuda.ptr(tri_bbox),
                    _cuda.ptr(chunk_bbox), _cuda.ptr(ids), _cuda.ptr(depth),
-                   n_chunks, height, width, s_count,
+                   n_chunks, height, width, s_count, layers,
                    ctypes.cast(offsets, ctypes.c_void_p),
                    _cuda.stream_of(tri_data)),
                 "raster kernel")

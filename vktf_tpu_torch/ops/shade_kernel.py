@@ -1,9 +1,10 @@
-"""Deferred shade + MSAA resolve: CUDA kernel and its plain version.
+"""Deferred shade, resolve and layer forms: CUDA kernels and their plain
+versions.
 
-Replaces ``vktf_tpu/ops/shade_kernel.py`` ``_shade_resolve_kernel`` (body
-``_shade_block_body``, fused-pool branch, one tap), launched by
-``_shade_final_call`` via ``shade_final_chunk``. Per pixel, from its
-winning triangle's shade-table row and one fused-mip pool row:
+Replaces ``vktf_tpu/ops/shade_kernel.py`` ``_shade_resolve_kernel`` and
+``_shade_layer_kernel`` (body ``_shade_block_body``, fused-pool branch,
+one tap), launched by ``_shade_final_call`` via ``shade_final_chunk``. Per
+pixel, from its triangle's shade-table row and one fused-mip pool row:
 
   * plane evaluation at the pixel centre (anchored, perspective-correct);
   * the sampler's LOD stage: analytic uv derivatives, anisotropic LOD
@@ -14,22 +15,35 @@ winning triangle's shade-table row and one fused-mip pool row:
     color, metallic-roughness and normal (one row serves all three);
   * TBN normal mapping and the GGX / Smith / Schlick BRDF over the lights
     (``vktf_tpu/ops/shade_cf.py:37-105``), the glTF alpha mode;
-  * composite over the clear colour, coverage-fraction resolve, sRGB
-    encode and u8 quantization, packed r | g << 8 | b << 16.
+  * resolve form (one peel layer, ``shade_resolve``): composite over the
+    clear colour, coverage-fraction resolve, sRGB encode and u8
+    quantization, packed r | g << 8 | b << 16;
+  * layer form (K > 1, ``shade_layer``): the linear radiance and effective
+    alpha of every (layer, pixel), for the front-to-back composite in
+    ``ops/pipeline.composite_resolve``. An uncovered entry is rgb 0,
+    alpha 0 (the TPU kernel shades table row 0 there; only its alpha 0
+    reaches the composite).
+
+Both forms share one fragment body: ``_fragment_plain`` in the plain
+versions, ``shade_fragment`` in ``csrc/shade.cu``.
 
 The TPU kernel received its table columns and pool rows from separate XLA
 gathers (its two-program phase split exists because its VMEM could not
-hold both operands); here the kernel gathers both rows itself, so no
+hold both operands); here the kernels gather both rows themselves, so no
 (2*ROW, N) phase-boundary tensor exists.
 
-CUDA design (``csrc/shade.cu``): one thread per pixel. Bound on the card:
-the two dependent row gathers (a 256-byte table row and up to 54 lanes of
-a 256-byte pool row per pixel, ~1 GB at 1080p if nothing were reused) and
-~1k flops of transcendental-heavy math (~30 powf) per pixel; rows of
-neighbouring pixels mostly coincide, so the gathers hit L2. Measured
-0.53 ms per launch over the 2,088,960 pixels of sponza 1080p on an NVIDIA
-H100 80GB HBM3 at a 700 W power limit (chip_smoke.py), the plain version
-69.9 ms.
+CUDA design (``csrc/shade.cu``): one thread per pixel (resolve form) or
+per (layer, pixel) over all K layers in one launch (layer form, whose
+uncovered entries write zeros and return at once). Bound on the card: the
+two dependent row gathers (a 256-byte table row and up to 54 lanes of a
+256-byte pool row per pixel) and ~1.6k float32 operations per shaded
+pixel with five lights (~30 powf); rows of neighbouring pixels mostly
+coincide, so the gathers hit L2. Measured on an NVIDIA H100 80GB HBM3 at a
+700 W power limit (chip_smoke.py): resolve form 0.53 ms over the 2,088,960
+pixels of sponza 1080p (least possible 0.047 ms, operations), plain
+version 71.8 ms; layer form 1.13 ms over the translucent sponza's 8 x
+2,088,960 entries, 3,657,626 of them covered (least possible 0.126 ms,
+bytes), plain version 612 ms.
 
 Arithmetic follows the JAX package's XLA form: the same fused
 multiply-adds (``ops/fmath.py``). Transcendentals (pow, log2, rsqrt) are
@@ -58,6 +72,10 @@ POINT_LIGHT_RADIUS = 0.1
 KERNEL = _cuda.Kernel(
     "shade", "shade.cu",
     "vktf_tpu/ops/shade_kernel.py:267 (_shade_resolve_kernel via _shade_final_call, pallas_call :646)",
+)
+KERNEL_LAYER = _cuda.Kernel(
+    "shade_layer", "shade.cu",
+    "vktf_tpu/ops/shade_kernel.py:216 (_shade_layer_kernel via _shade_final_call, pallas_call :646)",
 )
 
 
@@ -230,9 +248,11 @@ def _shade_lights(cf, wp, normal, view, base_rgb, metallic, roughness, lights):
     return r
 
 
-def shade_resolve_plain(tri, sx, sy, frac, table, pool, camera_position, lights,
-                        background, max_anisotropy: float):
-    """Plain-torch version: packed (N,) i32 pixels."""
+def _fragment_plain(tri, sx, sy, table, pool, camera_position, lights,
+                    max_anisotropy: float):
+    """The fragment body shared by the resolve and layer forms: per pixel,
+    (radiance [r, g, b], effective alpha, covered). Uncovered pixels shade
+    table row 0 and get alpha 0."""
     def cf(v):  # float32 constants on the pixels' device
         return f32(v, sx)
 
@@ -311,21 +331,72 @@ def shade_resolve_plain(tri, sx, sy, frac, table, pool, camera_position, lights,
     amode = col(C_AMODE)
     alpha = torch.where(amode == cf(0.0), cf(1.0),
                         torch.where(amode == cf(1.0), (a >= col(C_ACUT)).to(torch.float32), a))
-    # uncovered pixels composite nothing: the clear colour passes through
+    # uncovered pixels composite nothing
     alpha = torch.where(covered, alpha, cf(0.0))
+    return radiance, alpha, covered
+
+
+def linear_to_srgb_u8(v):
+    """Resolve-time sRGB encode and u8 quantization of a value already
+    clamped to [0, 1] (int32 out)."""
+    srgb = torch.where(v <= f32(0.0031308, v), v * f32(12.92, v),
+                       fma(f32(1.055, v), torch.pow(v, 1.0 / 2.4), f32(-0.055, v)))
+    return fma(srgb, f32(255.0, v), f32(0.5, v)).to(torch.int32)
+
+
+def shade_resolve_plain(tri, sx, sy, frac, table, pool, camera_position, lights,
+                        background, max_anisotropy: float):
+    """Plain-torch version: packed (N,) i32 pixels."""
+    radiance, alpha, covered = _fragment_plain(tri, sx, sy, table, pool, camera_position,
+                                               lights, max_anisotropy)
+    zero, one = f32(0.0, sx), f32(1.0, sx)
     packed = torch.zeros_like(tri)
-    one = cf(1.0)
     for c in range(3):
         bg = background[c].to(torch.float32)
-        rgb = torch.where(covered, radiance[c], cf(0.0))
+        rgb = torch.where(covered, radiance[c], zero)
         comp = fma(rgb, alpha, bg * (one - alpha))
         resolved = fma(comp, frac, bg * (one - frac))
-        v = torch.minimum(torch.maximum(resolved, cf(0.0)), one)
-        srgb = torch.where(v <= cf(0.0031308), v * cf(12.92),
-                           fma(cf(1.055), torch.pow(v, 1.0 / 2.4), cf(-0.055)))
-        u8 = fma(srgb, cf(255.0), cf(0.5)).to(torch.int32)
-        packed = packed | (u8 << (8 * c))
+        v = torch.minimum(torch.maximum(resolved, zero), one)
+        packed = packed | (linear_to_srgb_u8(v) << (8 * c))
     return packed
+
+
+def shade_layer_plain(tri, sx, sy, table, pool, camera_position, lights,
+                      max_anisotropy: float):
+    """Plain-torch version of shade_layer, one layer at a time."""
+    zero = f32(0.0, sx)
+    rgb, alpha = [], []
+    for layer in tri:
+        radiance, a, covered = _fragment_plain(layer, sx, sy, table, pool, camera_position,
+                                               lights, max_anisotropy)
+        rgb.append(torch.stack([torch.where(covered, r, zero) for r in radiance]))
+        alpha.append(a)
+    return torch.stack(rgb), torch.stack(alpha)
+
+
+def _check_shade_operands(tri, sx, sy, table, pool):
+    n = tri.shape[-1]
+    dev = tri.device
+    _cuda.require(tri, "tri", torch.int32, tri.shape)
+    _cuda.require(sx, "sx", torch.float32, (n,), dev)
+    _cuda.require(sy, "sy", torch.float32, (n,), dev)
+    if table.dim() != 2 or table.shape[1] != ROW:
+        raise ValueError(f"table must be (T, {ROW}), got {tuple(table.shape)}")
+    _cuda.require(table, "table", torch.float32, device=dev)
+    if pool.dim() != 2 or pool.shape[1] != 64 or pool.shape[0] == 0:
+        raise ValueError(f"pool must be (P, 64) u32 lanes, got {tuple(pool.shape)}")
+    _cuda.require(pool, "pool", torch.int32, device=dev)
+
+
+def _params(camera_position, lights, background, dev):
+    """The kernels' small constant block: camera (0:3), background (4:7),
+    then the lights' 8 values each."""
+    params = torch.zeros(8 + 8 * lights.shape[0], dtype=torch.float32, device=dev)
+    params[0:3] = camera_position.to(device=dev, dtype=torch.float32)
+    if background is not None:
+        params[4:7] = background.to(device=dev, dtype=torch.float32)[:3]
+    params[8:] = lights.to(device=dev, dtype=torch.float32).reshape(-1)
+    return params
 
 
 def shade_resolve(tri, sx, sy, frac, table, pool, camera_position, lights,
@@ -340,23 +411,14 @@ def shade_resolve(tri, sx, sy, frac, table, pool, camera_position, lights,
         return shade_resolve_plain(tri, sx, sy, frac, table, pool,
                                    camera_position, lights, background,
                                    max_anisotropy)
+    if tri.dim() != 1:
+        raise ValueError(f"tri must be (N,), got {tuple(tri.shape)}")
     n = tri.shape[0]
     dev = tri.device
-    _cuda.require(tri, "tri", torch.int32, (n,))
-    _cuda.require(sx, "sx", torch.float32, (n,), dev)
-    _cuda.require(sy, "sy", torch.float32, (n,), dev)
+    _check_shade_operands(tri, sx, sy, table, pool)
     _cuda.require(frac, "frac", torch.float32, (n,), dev)
-    if table.dim() != 2 or table.shape[1] != ROW:
-        raise ValueError(f"table must be (T, {ROW}), got {tuple(table.shape)}")
-    _cuda.require(table, "table", torch.float32, device=dev)
-    if pool.dim() != 2 or pool.shape[1] != 64 or pool.shape[0] == 0:
-        raise ValueError(f"pool must be (P, 64) u32 lanes, got {tuple(pool.shape)}")
-    _cuda.require(pool, "pool", torch.int32, device=dev)
     num_lights = lights.shape[0]
-    params = torch.zeros(8 + 8 * num_lights, dtype=torch.float32, device=dev)
-    params[0:3] = camera_position.to(device=dev, dtype=torch.float32)
-    params[4:7] = background.to(device=dev, dtype=torch.float32)[:3]
-    params[8:] = lights.to(device=dev, dtype=torch.float32).reshape(-1)
+    params = _params(camera_position, lights, background, dev)
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     lib = _cuda.library(KERNEL.source)
     fn = lib.vktf_shade_resolve
@@ -372,3 +434,39 @@ def shade_resolve(tri, sx, sy, frac, table, pool, camera_position, lights,
                        float(np.float32(max_anisotropy * max_anisotropy)),
                        _cuda.stream_of(tri)), "shade kernel")
     return out
+
+
+def shade_layer(tri, sx, sy, table, pool, camera_position, lights,
+                max_anisotropy: float):
+    """Layer form, one launch for every layer: (rgb, alpha) of each
+    (layer, pixel), linear radiance and effective alpha for the depth-peel
+    composite. tri (K, N) i32 (-1 uncovered); rgb (K, 3, N) f32, alpha
+    (K, N) f32. An uncovered entry is rgb 0, alpha 0. Other operands as
+    shade_resolve. CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
+    if tri.dim() != 2:
+        raise ValueError(f"tri must be (K, N), got {tuple(tri.shape)}")
+    if not tri.is_cuda:
+        return shade_layer_plain(tri, sx, sy, table, pool, camera_position, lights,
+                                 max_anisotropy)
+    layers, n = tri.shape
+    dev = tri.device
+    _check_shade_operands(tri, sx, sy, table, pool)
+    num_lights = lights.shape[0]
+    params = _params(camera_position, lights, None, dev)
+    rgb = torch.empty((layers, 3, n), dtype=torch.float32, device=dev)
+    alpha = torch.empty(tri.shape, dtype=torch.float32, device=dev)
+    lib = _cuda.library(KERNEL_LAYER.source)
+    fn = lib.vktf_shade_layer
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    if n:
+        KERNEL_LAYER.launches += 1
+        _cuda.check(fn(_cuda.ptr(tri), _cuda.ptr(sx), _cuda.ptr(sy), _cuda.ptr(table),
+                       _cuda.ptr(pool), _cuda.ptr(params), _cuda.ptr(rgb),
+                       _cuda.ptr(alpha), n, layers, num_lights, pool.shape[0],
+                       float(max_anisotropy),
+                       float(np.float32(max_anisotropy * max_anisotropy)),
+                       _cuda.stream_of(tri)), "shade layer kernel")
+    return rgb, alpha

@@ -20,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from vktf_tpu_torch.config import PEEL_LAYERS_MAX
 from vktf_tpu_torch.loaders.gltf import Asset, Material
 from vktf_tpu_torch.loaders.images import default_texture_data
 from vktf_tpu_torch.ops.texture_pack import build_material_pool
@@ -90,12 +91,21 @@ def _compute_smooth_normals(positions: np.ndarray, indices: np.ndarray) -> np.nd
 
 
 def _estimate_peel_layers(mat_alpha, tri_material, tri_instance) -> int:
-    """1 + the number of translucent instances, capped at 8."""
+    """Depth-peel layer count: 1 + the number of translucent (MASK/BLEND)
+    instances, clamped to PEEL_LAYERS_MAX. Any two translucent instances can
+    line up along some view ray, so the instance count is the sound bound;
+    past the cap, stacks composite only their nearest PEEL_LAYERS_MAX
+    fragments, which is logged. Stacks inside one instance are not counted
+    (RenderConfig.peel_layers forces a deeper K)."""
     alpha_mask = mat_alpha[:, 0] != 0
     if not bool(alpha_mask.any()):
         return 1
     n_alpha = int(np.unique(tri_instance[alpha_mask[tri_material]]).shape[0])
-    return min(1 + n_alpha, 8)
+    if 1 + n_alpha > PEEL_LAYERS_MAX:
+        log.warning("%d translucent instances exceed the %d-layer depth peel "
+                    "limit: deeper stacks composite only their nearest %d "
+                    "fragments", n_alpha, PEEL_LAYERS_MAX, PEEL_LAYERS_MAX)
+    return min(1 + n_alpha, PEEL_LAYERS_MAX)
 
 
 def _spread3(x):  # 10 bits -> every 3rd bit

@@ -25,10 +25,14 @@ log = logging.getLogger(__name__)
 class Scene:
     def __init__(self, assets: Sequence[Asset], config: RenderConfig,
                  camera: Optional[Camera] = None, device=None):
-        """device: where the scene lives and renders (default: the current
-        CUDA device when there is one, else the CPU)."""
+        """device: where the scene lives and renders. The default is the
+        current CUDA device; with no card it raises, and the CPU (the
+        kernels' plain versions) must be asked for with device="cpu"."""
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device: pass device=\"cpu\" to render "
+                                   "with the plain PyTorch versions on the CPU")
+            device = "cuda"
         render_scene, meta = flatten_assets(assets, torch.device(device))
         self._init(render_scene, meta, config, camera)
 
