@@ -6,7 +6,7 @@
 Needs one CUDA card and nvcc. In order, it:
   1. reports the card (nvidia-smi name and power limit);
   2. builds the CUDA sources of vktf_tpu_torch/csrc (one nvcc each, in
-     parallel; six kernels) and times the build;
+     parallel; eighteen kernel records) and times the build;
   3. builds the sponza preset with the port's numpy builder and uploads it;
   4. the opaque path (K = 1): renders frames through the port's Scene
      (render_async / render_still) with every kernel launch counter set to
@@ -21,9 +21,32 @@ Needs one CUDA card and nvcc. In order, it:
      Scene.render_async with the counters zeroed and read, the K-layer
      raster and the layer shade held against their plain versions and
      timed, and the stage-by-stage frame against the Scene frame;
-  8. renders small opaque and translucent frames on the card and on the
-     CPU (plain versions only) and compares them;
-  9. checks the frames (shape, dtype, >= 50% of pixels lit), saves them as
+  8. the texture side paths, each a path of its own through Scene with
+     the counters zeroed and read, its kernel held against its plain
+     version at the frame's shapes and timed:
+       a. aniso_taps=4 on the opaque sponza (shade_taps; the frame differs
+          from the one-tap frame);
+       b. aniso_taps=4 on the translucent sponza (shade_layer_taps);
+       c. shade_fused_pool=False (shade_classic; the frame equals the
+          fused frame on every pixel);
+       d. shade_attrs_boundary=True (shade_attrs; the frame equals c's,
+          and phase A's "attrs" stage is timed);
+       e. the mirror sponza (models.scenes.SAMPLER_PRESETS, every sampler
+          MIRRORED_REPEAT: shade_classic);
+       f. the mixed sponza (per-slot samplers: shade_per_slot);
+       g. the layer forms on translucent scenes: shade_fused_pool=False
+          (shade_layer_classic), the attrs boundary (shade_attrs_layer; its
+          frame equals the two-gather one) and the translucent mixed
+          sponza (shade_layer_per_slot);
+       h. four taps on the other texel sources: the attrs boundary with
+          aniso_taps=4 (shade_classic_taps; the frame equals a's) and the
+          mixed sponza (shade_per_slot_taps);
+       i. their layer forms at K = 8: shade_fused_pool=False with
+          aniso_taps=4 (shade_layer_classic_taps; the frame equals b's)
+          and the translucent mixed sponza (shade_layer_per_slot_taps);
+  9. renders small frames of every path on the card and on the CPU (plain
+     versions only) and compares them;
+ 10. checks the frames (shape, dtype, >= 50% of pixels lit), saves them as
      .npy in the build directory (vktf_tpu_torch/_build/, not committed),
      and prints the kernels line, the card line and, last,
      {"ok": true, "device": {...}}.
@@ -72,12 +95,19 @@ FP32_OPS_PER_S = 67e12
 # float32 operations per unit of work, counted from the kernels' sources
 # (a transcendental counted as 20): setup per triangle; raster per
 # (sample, triangle) pair whose pixel lies in the triangle's bbox (5 plane
-# evaluations and the tests); table per triangle; shade per shaded pixel,
-# plus per light (BRDF)
+# evaluations and the tests); table per triangle; shade per shaded pixel
+# the plane evaluation (1/w and the interpolated attributes) and the tail
+# (TBN, alpha), plus per texture tap the addressing (LOD and both levels'
+# windows) and the 24 texel decodes and filters of three textures at two
+# levels, plus per light the BRDF. The attrs kernels take the plane
+# evaluation and the addressing from phase A and do neither.
 SETUP_OPS = 400
 RASTER_OPS = 20
 TABLE_OPS = 600
-SHADE_OPS = 1000
+SHADE_OPS_PLANES = 100
+SHADE_OPS_TAIL = 200
+SHADE_OPS_ADDR_PER_TAP = 100
+SHADE_OPS_FILTER_PER_TAP = 600
 SHADE_OPS_PER_LIGHT = 120
 
 
@@ -144,14 +174,19 @@ def raster_bound(stream, height: int, width: int, samples: int, layers: int):
     return bound(nbytes, float(area.double().sum()) * samples * RASTER_OPS)
 
 
-def shade_bound(tri, sx, sy, table, max_anisotropy: float, num_lights: int,
-                in_bytes_per_px: int, out_bytes_per_entry: int):
-    """Per-pixel inputs and outputs once, plus each distinct table row and
-    fused pool row the covered entries read (256 bytes each); operations per
-    covered entry."""
+def shade_bound(tri, sx, sy, table, max_anisotropy: float, num_lights: int, layer: bool,
+                texels: str = "fused", taps: int = 1, attrs: bool = False):
+    """The per-pixel inputs the kernel reads once (tri, and the sx/sy
+    centres and, resolving, the frac coverage; the attrs kernels read tri
+    and frac alone), its outputs once (a packed pixel, or rgb and alpha of
+    each (layer, pixel)), each distinct table row the covered entries read
+    (256 bytes; the attrs form reads 28 floats and two pool-row indices per
+    covered entry instead) and each distinct pool row the texel source
+    reads over all taps (256 bytes: the l0 row of the fused form, the l0
+    and l1 rows of the classic form, those of every slot per slot);
+    operations per covered entry."""
     from vktf_tpu_torch.ops import shade_kernel as sk
-    from vktf_tpu_torch.ops.fmath import f32, fma
-    from vktf_tpu_torch.ops.shade_table import C_AX, C_AY
+    from vktf_tpu_torch.ops.fmath import f32
 
     n = tri.shape[-1]
     flat = tri.reshape(-1)
@@ -159,22 +194,33 @@ def shade_bound(tri, sx, sy, table, max_anisotropy: float, num_lights: int,
     reps = flat.numel() // n
     ids = flat[covered]
     px, py = sx.repeat(reps)[covered], sy.repeat(reps)[covered]
-    # the pool row each covered entry reads: the fragment body's first
-    # addressing steps (shade_kernel._fragment_plain)
+    # the pool rows each covered entry reads: the fragment body's
+    # addressing (shade_kernel._fragment_plain)
     rows = table[ids.long()]
-    sxa, sya = px - rows[:, C_AX], py - rows[:, C_AY]
-    w = fma(rows[:, 0], sxa, rows[:, 1] * sya) + rows[:, 2]
-    inv_w = 1.0 / torch.where(w.abs() < 1e-30, f32(1e-30, w), w)
 
     def cf(v):
         return f32(v, px)
 
-    tp0 = sk._texture_params(cf, lambda c: rows[:, c], sxa, sya, inv_w, max_anisotropy, 0)
-    pool_rows = sk._level_addr(cf, tp0, tp0["l0"])[0]
-    distinct = torch.unique(ids).numel() + torch.unique(pool_rows).numel()
+    def col(c):
+        return rows[:, c]
+
+    inv_w, attr = sk._anchored(cf, col, px, py)
+    pool_rows = []
+    for shift in [None] if taps == 1 else [(i + 0.5) / taps - 0.5 for i in range(taps)]:
+        tps = [sk._texture_params(cf, col, inv_w, attr, max_anisotropy, s, shift)
+               for s in range(3)]
+        for tp in tps if texels == "per_slot" else tps[:1]:
+            level0, level1 = sk.pool_window_addr(cf, tp)
+            pool_rows += [level0[0]] if texels == "fused" else [level0[0], level1[0]]
+    row_bytes = (ids.numel() * (sk.ATTR_ROWS + 2) * 4 if attrs
+                 else torch.unique(ids).numel() * 256)
+    in_bytes_per_px = (0 if layer else 4) + (0 if attrs else 8)
+    out_bytes_per_entry = 16 if layer else 4
     nbytes = (flat.numel() * 4 + n * in_bytes_per_px + flat.numel() * out_bytes_per_entry
-              + distinct * 256)
-    ops = int(covered.sum()) * (SHADE_OPS + SHADE_OPS_PER_LIGHT * num_lights)
+              + row_bytes + torch.unique(torch.cat(pool_rows)).numel() * 256)
+    per_tap = SHADE_OPS_FILTER_PER_TAP + (0 if attrs else SHADE_OPS_ADDR_PER_TAP)
+    ops = int(covered.sum()) * ((0 if attrs else SHADE_OPS_PLANES) + SHADE_OPS_TAIL
+                                + per_tap * taps + SHADE_OPS_PER_LIGHT * num_lights)
     return bound(nbytes, ops)
 
 
@@ -199,7 +245,8 @@ def main() -> int:
 
     from vktf_tpu_torch.config import RenderConfig
     from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
-    from vktf_tpu_torch.models.scenes import build_preset, set_blend, sponza_like_asset
+    from vktf_tpu_torch.models.scenes import (SAMPLER_PRESETS, build_preset, set_blend,
+                                              set_samplers, sponza_like_asset)
     from vktf_tpu_torch.ops import (_cuda, pipeline, present, raster, setup_kernel,
                                     shade_kernel, shade_table)
     from vktf_tpu_torch.scene.scene import Scene
@@ -207,8 +254,9 @@ def main() -> int:
     card = card_line()
     log("card:", card, "|", torch.cuda.get_device_name(0), "| torch",
         torch.__version__, "cuda", torch.version.cuda)
+    # the K = 1 path's four, then the K-layer raster and every other shade
     kernels = [setup_kernel.KERNEL, raster.KERNEL, shade_table.KERNEL, shade_kernel.KERNEL,
-               raster.KERNEL_LAYERS, shade_kernel.KERNEL_LAYER]
+               raster.KERNEL_LAYERS, *shade_kernel.KERNELS[1:]]
     sources = list(dict.fromkeys(k.source for k in kernels))
 
     # ---- 2. build -------------------------------------------------------
@@ -222,15 +270,15 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line))
 
     # ---- 3. scene -------------------------------------------------------
-    if args.small:
-        width, height = 256, 128
-        t0 = time.perf_counter()
-        assets = [sponza_like_asset(columns_per_ring=4, clutter=8, curtains=2,
-                                    tex_size=64)]
-    else:
-        width, height = 1920, 1080
-        t0 = time.perf_counter()
-        assets = build_preset("sponza")
+    width, height = (256, 128) if args.small else (1920, 1080)
+
+    def sponza_assets():
+        if args.small:
+            return [sponza_like_asset(columns_per_ring=4, clutter=8, curtains=2, tex_size=64)]
+        return build_preset("sponza")
+
+    t0 = time.perf_counter()
+    assets = sponza_assets()
     config = RenderConfig(width=width, height=height, msaa_samples=4)
     camera = Camera(*CAMERA, ViewFrustumParams(np.radians(45.0), width / height,
                                                0.1, 1.0e6))
@@ -284,6 +332,36 @@ def main() -> int:
         np.save(out_path, still)
         log(f"[{tag}] frame saved:", out_path.relative_to(_cuda.BUILD_DIR.parent.parent))
         return still, launches
+
+    def compare_packed(what: str, got, want) -> float:
+        """Packed pixels of a kernel against its plain version."""
+        step = torch.zeros_like(got)
+        for c in range(3):
+            step = torch.maximum(step, (((got >> (8 * c)) & 0xFF)
+                                        - ((want >> (8 * c)) & 0xFF)).abs())
+        n_step = int((step > 0).sum())
+        log(f"{what}: {got.numel()} pixels, max u8 step {int(step.max())}, off at {n_step} "
+            f"(tolerance: step <= {SHADE_STEP} on <= {SHADE_MISMATCH} of pixels)")
+        require(int(step.max()) <= SHADE_STEP and n_step <= SHADE_MISMATCH * got.numel(), what)
+        return float(step.max())
+
+    def compare_layer(what: str, got, want, tri_l) -> float:
+        """(rgb, alpha) of a layer kernel against its plain version: the
+        covered entries' values, and zeros where uncovered."""
+        (rgb_k, alpha_k), (rgb_p, alpha_p) = got, want
+        cov = tri_l >= 0
+        got_v = torch.cat([rgb_k.permute(1, 0, 2)[:, cov].reshape(-1), alpha_k[cov]])
+        want_v = torch.cat([rgb_p.permute(1, 0, 2)[:, cov].reshape(-1), alpha_p[cov]])
+        n_bad, err = bits_mismatch(got_v, want_v)
+        ulp = int(ulp_distance(got_v, want_v).max()) if got_v.numel() else 0
+        zero_ok = bool((rgb_k.permute(1, 0, 2)[:, ~cov] == 0).all() and (alpha_k[~cov] == 0).all())
+        log(f"{what}: {tri_l.numel()} (layer, pixel) entries, {int(cov.sum())} covered; "
+            f"values not bit-equal {n_bad} of {got_v.numel()}, max {ulp} ulp, max |diff| "
+            f"{err:.3e}; uncovered all zero: {zero_ok} (tolerance: {SHADE_LAYER_MISMATCH} of "
+            f"values, <= {SHADE_LAYER_ULP} ulp)")
+        require(zero_ok and n_bad <= SHADE_LAYER_MISMATCH * got_v.numel()
+                and ulp <= SHADE_LAYER_ULP, what)
+        return err
 
     # ---- 4. the opaque path (K = 1) through Scene -------------------------
     still, launches = drive(scene, "opaque")
@@ -371,18 +449,10 @@ def main() -> int:
     bg = torch.tensor(config.clear_color[:3], dtype=torch.float32, device=dev)
     s_args = (tri, sx, sy, frac, table, rs.quad_pool, cam, lights, bg, config.max_anisotropy)
     packed = shade_kernel.shade_resolve(*s_args)
-    packed_p = shade_kernel.shade_resolve_plain(*s_args)
-    step = torch.zeros_like(packed)
-    for c in range(3):
-        step = torch.maximum(step, (((packed >> (8 * c)) & 0xFF)
-                                    - ((packed_p >> (8 * c)) & 0xFF)).abs())
-    n_step = int((step > 0).sum())
-    log(f"shade: {packed.numel()} pixels, max u8 step {int(step.max())}, off at {n_step} "
-        f"(tolerance: step <= {SHADE_STEP} on <= {SHADE_MISMATCH} of pixels)")
-    require(int(step.max()) <= SHADE_STEP and n_step <= SHADE_MISMATCH * packed.numel(), "shade")
-    record(shade_kernel.KERNEL, float(step.max()), cuda_ms(lambda: shade_kernel.shade_resolve(*s_args), 20),
+    err = compare_packed("shade", packed, shade_kernel.shade_resolve_plain(*s_args))
+    record(shade_kernel.KERNEL, err, cuda_ms(lambda: shade_kernel.shade_resolve(*s_args), 20),
            cuda_ms(lambda: shade_kernel.shade_resolve_plain(*s_args), 3),
-           shade_bound(tri, sx, sy, table, config.max_anisotropy, meta.num_lights, 12, 4))
+           shade_bound(tri, sx, sy, table, config.max_anisotropy, meta.num_lights, False))
 
     # the frame the main path produced equals these stages' output
     frame_again = present.encode_rgb(packed, config).cpu().numpy()
@@ -449,41 +519,237 @@ def main() -> int:
 
     sl_args = (tri_t, sx, sy, table_t, rs_t.quad_pool, cam, lights_t, config.max_anisotropy)
     rgb_t, alpha_t = shade_kernel.shade_layer(*sl_args)
-    rgb_tp, alpha_tp = shade_kernel.shade_layer_plain(*sl_args)
-    cov = tri_t >= 0
-    got_v = torch.cat([rgb_t.permute(1, 0, 2)[:, cov].reshape(-1), alpha_t[cov]])
-    want_v = torch.cat([rgb_tp.permute(1, 0, 2)[:, cov].reshape(-1), alpha_tp[cov]])
-    n_bad, l_err = bits_mismatch(got_v, want_v)
-    ulp = int(ulp_distance(got_v, want_v).max()) if got_v.numel() else 0
-    zero_ok = bool((rgb_t.permute(1, 0, 2)[:, ~cov] == 0).all() and (alpha_t[~cov] == 0).all())
-    log(f"shade layer: {tri_t.numel()} (layer, pixel) entries, {int(cov.sum())} covered; "
-        f"values not bit-equal {n_bad} of {got_v.numel()}, max {ulp} ulp, max |diff| "
-        f"{l_err:.3e}; uncovered all zero: {zero_ok} (tolerance: {SHADE_LAYER_MISMATCH} of "
-        f"values, <= {SHADE_LAYER_ULP} ulp)")
-    require(zero_ok and n_bad <= SHADE_LAYER_MISMATCH * got_v.numel()
-            and ulp <= SHADE_LAYER_ULP, "layer shade")
+    l_err = compare_layer("shade layer", (rgb_t, alpha_t), shade_kernel.shade_layer_plain(*sl_args),
+                          tri_t)
     record(shade_kernel.KERNEL_LAYER, l_err, cuda_ms(lambda: shade_kernel.shade_layer(*sl_args), 10),
            cuda_ms(lambda: shade_kernel.shade_layer_plain(*sl_args), 1),
-           shade_bound(tri_t, sx, sy, table_t, config.max_anisotropy, meta_t.num_lights, 8, 16))
-    del rgb_tp, alpha_tp
+           shade_bound(tri_t, sx, sy, table_t, config.max_anisotropy, meta_t.num_lights, True))
 
     packed_t = pipeline.composite_resolve(rgb_t, alpha_t, frac_t, bg)
     require(np.array_equal(present.encode_rgb(packed_t, config).cpu().numpy(), still_t),
             "translucent stage-by-stage frame == Scene frame")
 
-    # ---- 8. small frames: card kernels vs the CPU plain path --------------
+    # ---- 8. the texture side paths, each a path through Scene ------------
+    ma = config.max_anisotropy
+
+    def variant(base, **overrides):
+        """base's device scene under another configuration."""
+        return Scene.from_render_scene(base.render_scene, base.meta,
+                                       base.config.replace(**overrides), camera)
+
+    def run_path(scn, tag: str, kernel, form):
+        """Drive one path; its shade form must be `form` and `kernel` must
+        have run in it."""
+        got = scn.frame_program.form
+        require((got.texels, got.taps, got.attrs) == form, f"{tag}: shade form {got}")
+        still_v, launches_v = drive(scn, tag)
+        require(launches_v[kernel.name] > 0, f"{tag}: {kernel.name} ran in the path")
+        path_launches.setdefault(kernel.name, launches_v[kernel.name])
+        return still_v, launches_v
+
+    def frame_stages(scn):
+        """(tri, frac, table, lights) of a scene's frame, as the path gives
+        them to the shade."""
+        rs_s = scn.render_scene
+        mrowsT_s, lights_s = pipeline.scene_update(rs_s, scn.meta)
+        setup_s = setup_kernel.setup_pack(rs_s.tri_corner, mrowsT_s, vp, width, height)
+        stream_s = raster.raster_stream(
+            setup_s["tri_data"], setup_s["bbox_rows"],
+            raster.stream_perm(setup_s["bbox_rows"], setup_s["valid"], chunk=config.pallas_chunk),
+            chunk=config.pallas_chunk)
+        ids_s, depth_s = raster.rasterize(*stream_s, ph, pw, config.msaa_samples,
+                                          scn.frame_program.layers)
+        table_s = shade_table.build_shade_table(setup_s["edge9"], rs_s.tri_corner,
+                                                rs_s.tri_static_cols, setup_s["anchor2"],
+                                                mrowsT_s)
+        tri_s, frac_s = pipeline.pixel_winner(ids_s, depth_s)
+        return tri_s, frac_s, table_s, lights_s
+
+    def held_resolve(what, kernel, args, bound_args, texels="fused", taps=1, attrs=False):
+        """A resolve-form kernel against its plain version, timed, recorded."""
+        fn, plain = ((shade_kernel.shade_attrs_resolve, shade_kernel.shade_attrs_resolve_plain)
+                     if attrs else (shade_kernel.shade_resolve, shade_kernel.shade_resolve_plain))
+        err = compare_packed(what, fn(*args), plain(*args))
+        record(kernel, err, cuda_ms(lambda: fn(*args), 20), cuda_ms(lambda: plain(*args), 1),
+               shade_bound(*bound_args, False, texels, taps, attrs))
+
+    def held_layer(what, kernel, args, tri_l, bound_args, texels="fused", taps=1, attrs=False):
+        """A layer-form kernel against its plain version, timed, recorded."""
+        fn, plain = ((shade_kernel.shade_attrs_layer, shade_kernel.shade_attrs_layer_plain)
+                     if attrs else (shade_kernel.shade_layer, shade_kernel.shade_layer_plain))
+        err = compare_layer(what, fn(*args), plain(*args), tri_l)
+        record(kernel, err, cuda_ms(lambda: fn(*args), 10), cuda_ms(lambda: plain(*args), 1),
+               shade_bound(*bound_args, True, texels, taps, attrs))
+
+    pool = rs.quad_pool
+    opaque_bound = (tri, sx, sy, table, ma, meta.num_lights)
+    # a. four taps, opaque: the multi-tap resolve kernel and not the one-tap
+    still_a, launches_a = run_path(variant(scene, aniso_taps=4), "taps4",
+                                   shade_kernel.KERNEL_TAPS, ("fused", 4, False))
+    require(launches_a["shade"] == 0, "taps4: the one-tap kernel did not run")
+    a_diff = (still_a != still).any(axis=0).mean()
+    log(f"[taps4] pixels differing from the one-tap frame: {a_diff:.4f}")
+    require(a_diff > 0.01, "taps4: the taps change the frame")
+    held_resolve("shade taps=4", shade_kernel.KERNEL_TAPS,
+                 (tri, sx, sy, frac, table, pool, cam, lights, bg, ma, "fused", 4),
+                 opaque_bound, "fused", 4)
+
+    # b. four taps, translucent K = 8
+    scene_bt = variant(scene_t, aniso_taps=4)
+    still_b, launches_b = run_path(scene_bt, "translucent_taps4",
+                                    shade_kernel.KERNEL_LAYER_TAPS, ("fused", 4, False))
+    require(launches_b["shade_layer"] == 0, "translucent_taps4: the one-tap kernel did not run")
+    translucent_bound = (tri_t, sx, sy, table_t, ma, meta_t.num_lights)
+    held_layer("shade layer taps=4", shade_kernel.KERNEL_LAYER_TAPS,
+               (tri_t, sx, sy, table_t, rs_t.quad_pool, cam, lights_t, ma, "fused", 4), tri_t,
+               translucent_bound, "fused", 4)
+    del scene_bt
+
+    # c. the two-gather pool on the opaque sponza: the fused frame exactly
+    still_c, _ = run_path(variant(scene, shade_fused_pool=False), "classic",
+                          shade_kernel.KERNEL_CLASSIC, ("classic", 1, False))
+    c_diff = int((still_c != still).any(axis=0).sum())
+    log(f"[classic] pixels differing from the fused frame: {c_diff} of {height * width}")
+    require(c_diff == 0, "classic frame == fused frame on every pixel")
+    held_resolve("shade classic", shade_kernel.KERNEL_CLASSIC,
+                 (tri, sx, sy, frac, table, pool, cam, lights, bg, ma, "classic", 1),
+                 opaque_bound, "classic")
+
+    # d. the attrs boundary: the classic frame exactly
+    still_d, _ = run_path(variant(scene, shade_attrs_boundary=True), "attrs",
+                          shade_kernel.KERNEL_ATTRS, ("classic", 1, True))
+    d_diff = int((still_d != still_c).any(axis=0).sum())
+    log(f"[attrs] pixels differing from the classic frame: {d_diff} of {height * width}")
+    require(d_diff == 0, "attrs frame == classic frame on every pixel")
+    attrs = shade_kernel.fragment_attrs(tri, sx, sy, table, ma)
+    held_resolve("shade attrs", shade_kernel.KERNEL_ATTRS,
+                 (*attrs, tri, frac, pool, cam, lights, bg), opaque_bound, "classic", attrs=True)
+    del attrs
+
+    # e. the mirror sponza: the classic kernel on its own scene
+    assets_m = set_samplers(sponza_assets(), **SAMPLER_PRESETS["mirror"])
+    scene_m = Scene(assets_m, config, camera=camera, device=dev)
+    require(scene_m.meta.mirror_wrap and not scene_m.meta.mixed_samplers, "mirror sponza flags")
+    still_m, _ = run_path(scene_m, "mirror", shade_kernel.KERNEL_CLASSIC, ("classic", 1, False))
+    # every sponza uv lies in [0, 1], so mirror and repeat wrap differ only
+    # in the texels a footprint takes across a texture's border
+    log(f"[mirror] pixels differing from the repeat-wrap frame: "
+        f"{int((still_m != still).any(axis=0).sum())} of {height * width}")
+    tri_m, frac_m, table_m, lights_m = frame_stages(scene_m)
+    m_args = (tri_m, sx, sy, frac_m, table_m, scene_m.render_scene.quad_pool, cam, lights_m, bg,
+              ma, "classic", 1)
+    compare_packed("shade classic, mirror sponza", shade_kernel.shade_resolve(*m_args),
+                   shade_kernel.shade_resolve_plain(*m_args))
+    del scene_m, assets_m
+
+    # f. the mixed sponza: per-slot rows
+    assets_x = set_samplers(sponza_assets(), **SAMPLER_PRESETS["mixed"])
+    scene_x = Scene(assets_x, config, camera=camera, device=dev)
+    require(scene_x.meta.mixed_samplers and scene_x.meta.mirror_wrap, "mixed sponza flags")
+    still_x, _ = run_path(scene_x, "mixed", shade_kernel.KERNEL_PER_SLOT, ("per_slot", 1, False))
+    log(f"[mixed] pixels differing from the one-sampler frame: "
+        f"{int((still_x != still).any(axis=0).sum())} of {height * width}")
+    tri_x, frac_x, table_x, lights_x = frame_stages(scene_x)
+    mixed_bound = (tri_x, sx, sy, table_x, ma, scene_x.meta.num_lights)
+    held_resolve("shade per-slot, mixed sponza", shade_kernel.KERNEL_PER_SLOT,
+                 (tri_x, sx, sy, frac_x, table_x, scene_x.render_scene.quad_pool, cam, lights_x,
+                  bg, ma, "per_slot", 1), mixed_bound, "per_slot")
+
+    # g. the layer forms on translucent scenes
+    still_g1, _ = run_path(variant(scene_t, shade_fused_pool=False), "translucent_classic",
+                           shade_kernel.KERNEL_LAYER_CLASSIC, ("classic", 1, False))
+    held_layer("shade layer classic", shade_kernel.KERNEL_LAYER_CLASSIC,
+               (tri_t, sx, sy, table_t, rs_t.quad_pool, cam, lights_t, ma, "classic", 1), tri_t,
+               translucent_bound, "classic")
+    still_g2, _ = run_path(variant(scene_t, shade_attrs_boundary=True), "translucent_attrs",
+                           shade_kernel.KERNEL_ATTRS_LAYER, ("classic", 1, True))
+    g_diff = int((still_g2 != still_g1).any(axis=0).sum())
+    log(f"[translucent_attrs] pixels differing from the translucent classic frame: {g_diff}")
+    require(g_diff == 0, "translucent attrs frame == translucent classic frame")
+    attrs_t = shade_kernel.fragment_attrs(tri_t, sx, sy, table_t, ma)
+    log(f"attrs boundary at K = {layers}: {attrs_t[0].numel() * 4 / 1e9:.2f} GB of rows")
+    held_layer("shade attrs layer", shade_kernel.KERNEL_ATTRS_LAYER,
+               (*attrs_t, tri_t, rs_t.quad_pool, cam, lights_t), tri_t, translucent_bound,
+               "classic", attrs=True)
+    del attrs_t
+    scene_xt = Scene(set_blend(assets_x), config, camera=camera, device=dev)
+    require(scene_xt.frame_program.layers == 8, "the translucent mixed sponza renders K = 8")
+    run_path(scene_xt, "translucent_mixed", shade_kernel.KERNEL_LAYER_PER_SLOT,
+             ("per_slot", 1, False))
+    tri_xt, _frac_xt, table_xt, lights_xt = frame_stages(scene_xt)
+    held_layer("shade layer per-slot", shade_kernel.KERNEL_LAYER_PER_SLOT,
+               (tri_xt, sx, sy, table_xt, scene_xt.render_scene.quad_pool, cam, lights_xt, ma,
+                "per_slot", 1), tri_xt,
+               (tri_xt, sx, sy, table_xt, ma, scene_xt.meta.num_lights), "per_slot")
+
+    # h. four taps on the two-gather and per-slot forms: the attrs boundary
+    # with taps takes the classic multi-tap kernel, whose frame is the fused
+    # four-tap frame exactly
+    still_h, _ = run_path(variant(scene, shade_attrs_boundary=True, aniso_taps=4), "attrs_taps4",
+                          shade_kernel.KERNEL_CLASSIC_TAPS, ("classic", 4, False))
+    h_diff = int((still_h != still_a).any(axis=0).sum())
+    log(f"[attrs_taps4] pixels differing from the fused four-tap frame: {h_diff} of "
+        f"{height * width}")
+    require(h_diff == 0, "classic four-tap frame == fused four-tap frame on every pixel")
+    held_resolve("shade classic taps=4", shade_kernel.KERNEL_CLASSIC_TAPS,
+                 (tri, sx, sy, frac, table, pool, cam, lights, bg, ma, "classic", 4),
+                 opaque_bound, "classic", 4)
+    run_path(variant(scene_x, aniso_taps=4), "mixed_taps4", shade_kernel.KERNEL_PER_SLOT_TAPS,
+             ("per_slot", 4, False))
+    held_resolve("shade per-slot taps=4, mixed sponza", shade_kernel.KERNEL_PER_SLOT_TAPS,
+                 (tri_x, sx, sy, frac_x, table_x, scene_x.render_scene.quad_pool, cam, lights_x,
+                  bg, ma, "per_slot", 4), mixed_bound, "per_slot", 4)
+    del scene_x
+
+    # i. their layer forms at K = 8
+    still_i, _ = run_path(variant(scene_t, shade_fused_pool=False, aniso_taps=4),
+                          "translucent_classic_taps4", shade_kernel.KERNEL_LAYER_CLASSIC_TAPS,
+                          ("classic", 4, False))
+    i_diff = int((still_i != still_b).any(axis=0).sum())
+    log(f"[translucent_classic_taps4] pixels differing from the translucent fused four-tap "
+        f"frame: {i_diff}")
+    require(i_diff == 0, "translucent classic four-tap frame == fused four-tap frame")
+    held_layer("shade layer classic taps=4", shade_kernel.KERNEL_LAYER_CLASSIC_TAPS,
+               (tri_t, sx, sy, table_t, rs_t.quad_pool, cam, lights_t, ma, "classic", 4), tri_t,
+               translucent_bound, "classic", 4)
+    run_path(variant(scene_xt, aniso_taps=4), "translucent_mixed_taps4",
+             shade_kernel.KERNEL_LAYER_PER_SLOT_TAPS, ("per_slot", 4, False))
+    held_layer("shade layer per-slot taps=4", shade_kernel.KERNEL_LAYER_PER_SLOT_TAPS,
+               (tri_xt, sx, sy, table_xt, scene_xt.render_scene.quad_pool, cam, lights_xt, ma,
+                "per_slot", 4), tri_xt,
+               (tri_xt, sx, sy, table_xt, ma, scene_xt.meta.num_lights), "per_slot", 4)
+    del scene_xt, assets_x
+    require({r["name"] for r in records} == {k.name for k in kernels},
+            "every kernel was held against its plain version")
+
+    # ---- 9. small frames: card kernels vs the CPU plain path --------------
     small_cfg = RenderConfig(width=256, height=128, msaa_samples=4)
     small_cam = Camera(*CAMERA, ViewFrustumParams(np.radians(45.0), 2.0, 0.1, 1.0e6))
-    for tag in ("opaque", "translucent"):
+    small_paths = [  # (tag, asset edits, config overrides): one of each form
+        ("opaque", (), {}), ("translucent", ("blend",), {}), ("taps4", (), {"aniso_taps": 4}),
+        ("translucent_taps2", ("blend",), {"aniso_taps": 2}),
+        ("classic", (), {"shade_fused_pool": False}), ("attrs", (), {"shade_attrs_boundary": True}),
+        ("translucent_attrs", ("blend",), {"shade_attrs_boundary": True}),
+        ("mirror_taps2", ("mirror",), {"aniso_taps": 2}), ("mixed", ("mixed",), {}),
+        ("translucent_mixed", ("blend", "mixed"), {}),
+        ("mixed_taps2", ("mixed",), {"aniso_taps": 2}),
+        ("translucent_classic_taps2", ("blend",), {"shade_fused_pool": False, "aniso_taps": 2}),
+        ("translucent_mixed_taps2", ("blend", "mixed"), {"aniso_taps": 2}),
+    ]
+    for tag, edits, overrides in small_paths:
         small = [sponza_like_asset(columns_per_ring=4, clutter=8, curtains=2, tex_size=64)]
-        if tag == "translucent":
-            set_blend(small)
-        f_gpu = Scene(small, small_cfg, camera=small_cam, device=dev)
-        f_cpu = Scene(small, small_cfg, camera=small_cam, device="cpu")
+        for edit in edits:
+            if edit == "blend":
+                set_blend(small)
+            else:
+                set_samplers(small, **SAMPLER_PRESETS[edit])
+        cfg_s = small_cfg.replace(**overrides)
+        f_gpu = Scene(small, cfg_s, camera=small_cam, device=dev)
+        f_cpu = Scene(small, cfg_s, camera=small_cam, device="cpu")
         fd = np.abs(f_gpu.render_still().astype(np.int16) - f_cpu.render_still()).max(axis=0)
-        log(f"small {tag} frame (K = {f_gpu.frame_program.layers}) card vs CPU plain: max diff "
-            f"{int(fd.max())}, off at {float((fd > 0).mean()):.5f} of pixels (tolerance: 1 on "
-            f"{FRAME_MISMATCH})")
+        log(f"small {tag} frame (K = {f_gpu.frame_program.layers}, {f_gpu.frame_program.form}) "
+            f"card vs CPU plain: max diff {int(fd.max())}, off at {float((fd > 0).mean()):.5f} "
+            f"of pixels (tolerance: 1 on {FRAME_MISMATCH})")
         require(fd.max() <= 1 and (fd > 0).mean() <= FRAME_MISMATCH, f"small {tag} frame")
 
     log(json.dumps({"kernels": records}))

@@ -8,8 +8,11 @@ so skip it):
 
 Inputs are the seeded special-case triangles of test_torch_setup.py, the
 small sponza courtyard at 256x128 (every MSAA count, K = 1, 2, 4, 8 peel
-layers), the hand-computed fill-rule geometry of test_torch_raster.py and
-a 9-deep stack of equal-depth quads. Tolerance: bit-equal (the
+layers), the hand-computed fill-rule geometry of test_torch_raster.py, a
+9-deep stack of equal-depth quads, and textured planes at 96x64 (mirror,
+clamp and mixed samplers over uvs in [-0.75, 1.75]; repeat and nearest
+over uvs far outside [0, 1] up to the mip chain's top) for every texel
+source, tap count and the attrs boundary. Tolerance: bit-equal (the
 kernels run the plain versions' operations in the same order, with fused
 multiply-adds at the same places and the same CUDA math library).
 """
@@ -220,3 +223,107 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
     for layers in (0, 9):  # the kernel keeps 1..8 layers
         with pytest.raises(ValueError):
             raster.rasterize(*stream, tp.HEIGHT, tp.WIDTH, 4, layers)
+
+
+_CLAMP = {"wrap_u": "clamp_to_edge", "wrap_v": "clamp_to_edge"}
+_MIRROR = {"wrap_u": "mirrored_repeat", "wrap_v": "mirrored_repeat"}
+_PLANES = {  # the texture side paths' plane scenes (tests/torch_parity.py)
+    "mirror": dict(tp.MIXED_PLANE, samplers=(_MIRROR,) * 3),
+    "clamp": dict(tp.MIXED_PLANE, samplers=(_CLAMP,) * 3),
+    "mixed": tp.MIXED_PLANE,
+    # uv far outside [0, 1], lod up to the chain top (l1 == l0), 8 px chain
+    "edge_repeat": tp.EDGE_PLANE,
+    "edge_nearest": dict(tp.EDGE_PLANE, samplers=(
+        {"mag_filter": "nearest", "min_filter": "nearest", "mipmap_mode": "nearest"},) * 3),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _plane(device, which, msaa, layers):
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.scene.scene import Scene
+
+    spec = _PLANES[which]
+    config = RenderConfig(width=96, height=64, msaa_samples=msaa, tile_shape=(32, 64),
+                          peel_layers=layers)
+    return Scene([tp.plane_asset(**spec, blend=layers > 1)], config,
+                 camera=tp.plane_camera(spec, 96, 64), device=device)
+
+
+def _assert_same(got, want, what):
+    if got.dtype == torch.float32:
+        tp.assert_bits_equal(got.cpu().numpy(), want.cpu().numpy(), what)
+    else:
+        assert torch.equal(got, want), (what, int((got != want).sum()))
+
+
+@pytest.mark.parametrize("layers", [1, 4])
+@pytest.mark.parametrize("msaa", [1, 4])
+@pytest.mark.parametrize("which", sorted(_PLANES))
+def test_texture_kernels_on_planes(dev, which, msaa, layers):
+    """Every texel source at 1, 2, 4 and 8 taps, and the attrs boundary,
+    against the plain versions (resolve form at K = 1, layer form at K = 4)."""
+    from vktf_tpu_torch.ops import shade_kernel as sk
+
+    st = tp.port_stages(_plane(str(dev), which, msaa, layers))
+    tri = st["tri"]
+    assert float((tri.reshape(-1, tri.shape[-1])[0] >= 0).float().mean()) > 0.2
+    if layers > 1:  # the floating plane covers a second layer
+        assert bool((tri[1] >= 0).any())
+    common = (st["sx"], st["sy"])
+    for texels in sk.TEXELS:
+        for taps in sk.TAPS:
+            kernel = sk._COLS_KERNELS[(texels, taps > 1)][0 if layers == 1 else 1]
+            before = kernel.launches
+            if layers == 1:
+                args = (tri, *common, st["frac"], st["table"], st["pool"], st["cam"],
+                        st["lights"], st["bg"], 16.0, texels, taps)
+                _assert_same(sk.shade_resolve(*args), sk.shade_resolve_plain(*args),
+                             f"{texels} x{taps}")
+            else:
+                args = (tri, *common, st["table"], st["pool"], st["cam"], st["lights"], 16.0,
+                        texels, taps)
+                for got, want, what in zip(sk.shade_layer(*args), sk.shade_layer_plain(*args),
+                                           ("rgb", "alpha")):
+                    _assert_same(got, want, f"{texels} x{taps} {what}")
+            assert kernel.launches == before + 1
+    attrs = sk.fragment_attrs(tri, *common, st["table"], 16.0)
+    if layers == 1:
+        args = (*attrs, tri, st["frac"], st["pool"], st["cam"], st["lights"], st["bg"])
+        _assert_same(sk.shade_attrs_resolve(*args), sk.shade_attrs_resolve_plain(*args), "attrs")
+    else:
+        args = (*attrs, tri, st["pool"], st["cam"], st["lights"])
+        for got, want, what in zip(sk.shade_attrs_layer(*args), sk.shade_attrs_layer_plain(*args),
+                                   ("rgb", "alpha")):
+            _assert_same(got, want, f"attrs {what}")
+
+
+@pytest.mark.parametrize("which", ["edge_repeat", "edge_nearest", "clamp"])
+def test_classic_equals_fused_on_the_card(dev, which):
+    """Repeat and clamp scenes: the two-gather kernel renders the fused
+    kernel's frame, and the attrs kernels render it too."""
+    from vktf_tpu_torch.scene.scene import Scene
+
+    scene = _plane(str(dev), which, 4, 1)
+    frames = [Scene.from_render_scene(scene.render_scene, scene.meta,
+                                      scene.config.replace(**kw), scene.camera).render_still()
+              for kw in ({}, {"shade_fused_pool": False}, {"shade_attrs_boundary": True})]
+    assert (frames[0].max(axis=0) > 0).mean() > 0.3
+    np.testing.assert_array_equal(frames[1], frames[0])
+    np.testing.assert_array_equal(frames[2], frames[0])
+
+
+def test_texture_kernels_raise_on_inputs_they_do_not_take(dev):
+    from vktf_tpu_torch.ops import shade_kernel as sk
+
+    st = tp.port_stages(_plane(str(dev), "mirror", 4, 1))
+    args = (st["tri"], st["sx"], st["sy"], st["frac"], st["table"], st["pool"], st["cam"],
+            st["lights"], st["bg"], 16.0)
+    with pytest.raises(ValueError):
+        sk.shade_resolve(*args, "bilinear")
+    with pytest.raises(ValueError):
+        sk.shade_resolve(*args, "classic", 3)
+    attrs, r0, r1 = sk.fragment_attrs(st["tri"], st["sx"], st["sy"], st["table"], 16.0)
+    with pytest.raises(ValueError):  # 32 padded rows, as the TPU kernel took them
+        sk.shade_attrs_resolve(torch.cat([attrs, attrs[:4]]), r0, r1, st["tri"], st["frac"],
+                               st["pool"], st["cam"], st["lights"], st["bg"])

@@ -99,12 +99,15 @@ def test_plain_versions_count_no_launches():
     from vktf_tpu_torch.scene.scene import Scene
 
     kernels = (setup_kernel.KERNEL, raster.KERNEL, raster.KERNEL_LAYERS,
-               shade_table.KERNEL, shade_kernel.KERNEL, shade_kernel.KERNEL_LAYER)
+               shade_table.KERNEL, *shade_kernel.KERNELS)
     before = [k.launches for k in kernels]
     for layers in (1, 2):
-        scene = Scene(tp.torch_assets("box"), _port_config().replace(peel_layers=layers),
-                      device="cpu")
-        scene.render_still()
+        for texture in ({}, {"aniso_taps": 2}, {"shade_fused_pool": False},
+                        {"shade_attrs_boundary": True}):
+            scene = Scene(tp.torch_assets("box"),
+                          _port_config().replace(peel_layers=layers, **texture),
+                          device="cpu")
+            scene.render_still()
     assert [k.launches for k in kernels] == before
 
 
@@ -165,11 +168,16 @@ def test_config_raises_on_what_it_cannot_honour(field, value):
 
 
 def test_frame_program_raises_on_unported_scenes():
+    """Mirror-wrap and mixed-sampler scenes render (tests/test_torch_texture.py
+    routes them); a scene whose peel estimate lies outside the raster
+    kernel's 1..8 layers does not, and raises."""
     from vktf_tpu_torch.ops.pipeline import FrameProgram
     from vktf_tpu_torch.scene.flatten import SceneMeta
 
     base = dict(level_slices=((0, 1),), num_lights=0, num_instances=1,
                 num_triangles=1, num_vertices=3)
     for extra in ({"mixed_samplers": True}, {"mirror_wrap": True}):
+        FrameProgram(SceneMeta(**base, **extra), _port_config())
+    for layers in (0, 9):
         with pytest.raises(ValueError):
-            FrameProgram(SceneMeta(**base, **extra), _port_config())
+            FrameProgram(SceneMeta(**base, peel_layers=layers), _port_config())

@@ -53,28 +53,35 @@ def _jax_native_mips(enabled: bool):
         native._load = load
 
 
+def _small_sponza_variant(name: str, sponza_like_asset):
+    """The small courtyard named `name`: "sponza_small" plus any of
+    "_blend" (set_blend) and "_mirror" or "_mixed" (set_samplers presets),
+    or None for another name. set_blend and set_samplers touch only the
+    glTF fields both packages share, so they edit the JAX assets too."""
+    from vktf_tpu_torch.models.scenes import SAMPLER_PRESETS, set_blend, set_samplers
+
+    if not name.startswith("sponza_small"):
+        return None
+    assets = [sponza_like_asset(**SMALL_SPONZA)]
+    for variant in name[len("sponza_small"):].split("_")[1:]:
+        if variant == "blend":
+            set_blend(assets)
+        else:
+            set_samplers(assets, **SAMPLER_PRESETS[variant])
+    return assets
+
+
 def jax_assets(name: str, native: bool = False):
     from vktf_tpu.models.scenes import build_preset, sponza_like_asset
-    # the translucent courtyard: set_blend touches only the glTF material
-    # fields both packages share, so it edits the JAX assets too
-    from vktf_tpu_torch.models.scenes import set_blend
 
     with _jax_native_mips(native):
-        if name == "sponza_small":
-            return [sponza_like_asset(**SMALL_SPONZA)]
-        if name == "sponza_small_blend":
-            return set_blend([sponza_like_asset(**SMALL_SPONZA)])
-        return build_preset(name)
+        return _small_sponza_variant(name, sponza_like_asset) or build_preset(name)
 
 
 def torch_assets(name: str):
-    from vktf_tpu_torch.models.scenes import build_preset, set_blend, sponza_like_asset
+    from vktf_tpu_torch.models.scenes import build_preset, sponza_like_asset
 
-    if name == "sponza_small":
-        return [sponza_like_asset(**SMALL_SPONZA)]
-    if name == "sponza_small_blend":
-        return set_blend([sponza_like_asset(**SMALL_SPONZA)])
-    return build_preset(name)
+    return _small_sponza_variant(name, sponza_like_asset) or build_preset(name)
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,12 +112,12 @@ def jax_leaves(name: str, native: bool = False) -> dict:
 
 
 def jax_config(msaa: int = 4, width: int = WIDTH, height: int = HEIGHT,
-               peel_layers=None):
+               peel_layers=None, **kw):
     from vktf_tpu.config import RenderConfig
 
     return RenderConfig(width=width, height=height, msaa_samples=msaa,
                         backend="pallas", pallas_interpret=True,
-                        shade_skip_mode=False, peel_layers=peel_layers)
+                        shade_skip_mode=False, peel_layers=peel_layers, **kw)
 
 
 def cameras(width: int = WIDTH, height: int = HEIGHT):
@@ -124,11 +131,11 @@ def cameras(width: int = WIDTH, height: int = HEIGHT):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_program(name: str, msaa: int = 4, peel_layers=None):
+def jax_program(name: str, msaa: int = 4, peel_layers=None, **kw):
     from vktf_tpu.ops.pipeline import PallasFrameProgram
 
     _scene, meta = jax_scene(name)
-    return PallasFrameProgram(meta, jax_config(msaa, peel_layers=peel_layers))
+    return PallasFrameProgram(meta, jax_config(msaa, peel_layers=peel_layers, **kw))
 
 
 def port_meta(jmeta):
@@ -268,3 +275,122 @@ def ulp_diff(actual, expected) -> np.ndarray:
     a = np.where(a < 0, -(a & 0x7FFFFFFF), a)
     e = np.where(e < 0, -(e & 0x7FFFFFFF), e)
     return np.abs(a - e)
+
+
+def checker_rgba(size, a, b, cell) -> np.ndarray:
+    """(size, size, 4) u8 checkerboard (tests/helpers.checker_png_bytes'
+    pattern, undecoded)."""
+    img = np.zeros((size, size, 4), np.uint8)
+    yy, xx = np.mgrid[0:size, 0:size]
+    mask = ((xx // cell) + (yy // cell)) % 2 == 0
+    img[mask] = a
+    img[~mask] = b
+    return img
+
+
+# plane scenes (built with the port's classes; the JAX shade functions take their
+# stage outputs): the mixed-sampler plane of tests/test_textures.py:211-235
+# and the fused-mip edge-case plane of :255-283
+MIXED_PLANE = dict(
+    samplers=({}, {"wrap_u": "clamp_to_edge", "wrap_v": "clamp_to_edge"},
+              {"wrap_u": "mirrored_repeat", "wrap_v": "mirrored_repeat", "mag_filter": "nearest"}),
+    uv_scale=2.5, uv_offset=-0.75, plane_size=3.0, translation=(0.0, 0.0, -1.2),
+    tex_size=32, cells=(8, 16, 16), camera=((0.0, 1.6, 1.8), (0.0, -0.7, -1.0)))
+EDGE_PLANE = dict(
+    samplers=({},) * 3, uv_scale=4.0, uv_offset=-1.5, plane_size=40.0,
+    translation=(0.0, 0.0, -2.0), tex_size=8, cells=(2, 2, 2),
+    camera=((0.0, 1.2, 6.0), (0.0, -0.18, -1.0)))
+
+
+def plane_asset(samplers, uv_scale, uv_offset, plane_size, translation, tex_size, cells,
+                camera=None, blend=False):
+    """A textured plane lit by one directional light, built with the port's
+    dataclasses. samplers: three dicts of Sampler fields (base,
+    metallic-roughness, normal). blend: the material BLENDs at alpha 0.5 and
+    a smaller copy of the plane floats 0.3 above, so two layers cover the
+    view's centre."""
+    from vktf_tpu_torch.loaders.gltf import (
+        Asset, Light, Material, Mesh, Node, PbrMetallicRoughness, Primitive, Sampler, Scene,
+        Texture)
+    from vktf_tpu_torch.loaders.images import TextureData, generate_mips
+    from vktf_tpu_torch.mathx.quaternion import quat_to_matrix
+    from vktf_tpu_torch.models.primitives import plane_mesh
+
+    def texture(rgba, srgb, fields):
+        return Texture(data=TextureData(levels=generate_mips(rgba, srgb), srgb=srgb),
+                       sampler=Sampler(**fields))
+
+    base = checker_rgba(tex_size, (220, 40, 40, 255), (40, 40, 220, 255), cells[0])
+    mr = checker_rgba(tex_size, (40, 200, 120, 255), (200, 60, 60, 255), cells[1])
+    nrm = checker_rgba(tex_size, (128, 128, 255, 255), (180, 100, 230, 255), cells[2])
+    material = Material(
+        pbr_metallic_roughness=PbrMetallicRoughness(
+            base_color_factor=np.asarray((1.0, 1.0, 1.0, 0.5 if blend else 1.0), np.float32),
+            base_color_texture=texture(base, True, samplers[0]), metallic_factor=0.4,
+            roughness_factor=0.7, metallic_roughness_texture=texture(mr, False, samplers[1])),
+        normal_texture=texture(nrm, False, samplers[2]),
+        alpha_mode="BLEND" if blend else "OPAQUE")
+    geom = plane_mesh(plane_size)
+    pos = geom["positions"]
+    mesh = Mesh(primitives=[Primitive(
+        positions=pos, indices=geom["indices"].astype(np.uint32), normals=geom["normals"],
+        tangents=geom["tangents"], uvs=(geom["uvs"] * uv_scale + uv_offset).astype(np.float32),
+        material=material, aabb=np.stack([pos.min(axis=0), pos.max(axis=0)]))])
+    light_m = np.eye(4, dtype=np.float32)
+    light_m[:3, :3] = quat_to_matrix(np.asarray((0.9239, -0.3827, 0.0, 0.0), np.float32))
+    place = np.eye(4, dtype=np.float32)
+    place[:3, 3] = translation
+    nodes = [Node(local_transform=place, mesh=0), Node(local_transform=light_m, light=0)]
+    if blend:
+        above = np.diag(np.asarray((0.5, 1.0, 0.5, 1.0), np.float32))
+        above[:3, 3] = np.asarray(translation, np.float32) + (0.0, 0.3, 0.0)
+        nodes.append(Node(local_transform=above, mesh=0))
+    return Asset(name="plane", materials=[material], meshes=[mesh],
+                 lights=[Light(color=np.asarray((2.5, 2.5, 2.5), np.float32))], nodes=nodes,
+                 scenes=[Scene(root_nodes=list(range(len(nodes))))], default_scene=0)
+
+
+def plane_camera(spec, width, height):
+    from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
+
+    position, direction = spec["camera"]
+    return Camera(position, direction,
+                  ViewFrustumParams(np.radians(45.0), width / height, 0.1, 100.0))
+
+
+def port_stages(scene):
+    """The port's frame stages up to the shade for a Scene, on its device:
+    dict(tri (K, N) or (N,), frac, sx, sy, table, pool, lights, cam, bg)."""
+    from vktf_tpu_torch.ops import pipeline, raster, setup_kernel, shade_table
+
+    rs, meta, cfg, prog = scene.render_scene, scene.meta, scene.config, scene.frame_program
+    dev = rs.device
+    vp = torch.as_tensor(np.asarray(scene.camera.view_projection_transform, np.float32),
+                         device=dev)
+    mrowsT, lights = pipeline.scene_update(rs, meta)
+    setup = setup_kernel.setup_pack(rs.tri_corner, mrowsT, vp, cfg.width, cfg.height)
+    stream = raster.raster_stream(setup["tri_data"], setup["bbox_rows"],
+                                  raster.stream_perm(setup["bbox_rows"], setup["valid"]))
+    ids, depth = raster.rasterize(*stream, cfg.padded_height, cfg.padded_width,
+                                  cfg.msaa_samples, prog.layers)
+    table = shade_table.build_shade_table(setup["edge9"], rs.tri_corner, rs.tri_static_cols,
+                                          setup["anchor2"], mrowsT)
+    tri, frac = pipeline.pixel_winner(ids, depth)
+    sx, sy = pipeline.pixel_centers(cfg.padded_height, cfg.padded_width, dev)
+    return dict(tri=tri, frac=frac, sx=sx, sy=sy, table=table, pool=rs.quad_pool,
+                lights=lights,
+                cam=torch.as_tensor(np.asarray(scene.camera.position, np.float32), device=dev),
+                bg=torch.tensor(cfg.clear_color[:3], dtype=torch.float32, device=dev))
+
+
+def pack_table(table) -> np.ndarray:
+    """The port's (T, 64) f32 shade table as the JAX package's (T, 128) u16
+    hi|lo halves."""
+    bits = np.ascontiguousarray(np.asarray(table, np.float32)).view(np.uint32)
+    return np.concatenate([(bits >> 16).astype(np.uint16), (bits & 0xFFFF).astype(np.uint16)],
+                          axis=1)
+
+
+def pool_u16(pool) -> np.ndarray:
+    """The port's (P, 64) i32 texel pool as the JAX package's (P, 128) u16."""
+    return np.ascontiguousarray(np.asarray(pool)).view(np.uint16)

@@ -2,10 +2,12 @@
 
 The counterpart of ``vktf_tpu/config.py`` for the slice the port renders:
 pixel-rate shading, K = 1..8 depth-peel layers (one for opaque scenes, the
-scene's estimate or ``peel_layers`` for MASK/BLEND ones), the fused-mip
-texture pool and the exact planar RGB present. Only the fields this
-pipeline honours exist here, and an explicit value it cannot honour raises
-instead of falling back silently.
+scene's estimate or ``peel_layers`` for MASK/BLEND ones), every texture
+configuration of the JAX frame program (the fused-mip or two-gather pool,
+per-slot samplers, 1/2/4/8 anisotropic taps, the attrs boundary) and the
+exact planar RGB present. Only the fields this pipeline honours exist here,
+and an explicit value it cannot honour raises instead of falling back
+silently.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 _SUPPORTED_MSAA = (8, 4, 2, 1)
+# anisotropic tap counts the shade kernels take (1/N exact in float32)
+ANISO_TAPS = (1, 2, 4, 8)
 
 # The raster kernel keeps at most this many nearest fragments per sample.
 PEEL_LAYERS_MAX = 8
@@ -56,6 +60,25 @@ class RenderConfig:
     pallas_chunk: int = 256
     # Sampler anisotropy as single-tap LOD sharpening (1.0 = isotropic).
     max_anisotropy: float = 16.0
+    # True multi-tap anisotropic filtering: 1 = the LOD sharpening above
+    # alone; 2/4/8 = N taps along the major footprint axis, each with its
+    # own pool rows, averaged before the BRDF (the reference sampler's
+    # anisotropy, model.cppm:261-275). Runs on whichever texel source the
+    # scene takes.
+    aniso_taps: int = 1
+    # Texel pool form. None = auto: the fused-mip form (one pool row per
+    # pixel serves both trilinear levels). False forces the two-gather form
+    # (one row per level). Mirror-wrap and mixed-sampler scenes always take
+    # the two-gather form (resolved_fused_pool): True cannot force it.
+    shade_fused_pool: Optional[bool] = None
+    # Attrs boundary: evaluate planes and addressing once per pixel into 28
+    # attribute rows (plain torch), then shade from them in the attrs
+    # kernels (two-gather pool, one tap). Off by default: the frame is the
+    # same, and on the card phase A's rows cost more than they save
+    # (PERF.md). With aniso_taps > 1 or mixed samplers the frame takes the
+    # two-gather multi-tap or per-slot form instead, as the JAX frame
+    # program does.
+    shade_attrs_boundary: bool = False
     clear_color: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 1.0)
     # Relative view-projection change (Frobenius) above which the cached
     # Morton stream permutation is recomputed; 0 re-sorts every frame.
@@ -92,6 +115,8 @@ class RenderConfig:
                              "the raster kernel stages 256-triangle chunks")
         if self.max_anisotropy < 1.0:
             raise ValueError("max_anisotropy must be >= 1")
+        if self.aniso_taps not in ANISO_TAPS:
+            raise ValueError(f"aniso_taps must be 1, 2, 4 or 8, got {self.aniso_taps}")
         if self.peel_layers is not None and not 1 <= self.peel_layers <= PEEL_LAYERS_MAX:
             raise ValueError(f"peel_layers must be None or 1..{PEEL_LAYERS_MAX}, "
                              f"got {self.peel_layers}")
@@ -116,6 +141,18 @@ class RenderConfig:
         """Effective depth-peel K: the explicit override, else the scene's
         estimate."""
         return self.peel_layers if self.peel_layers is not None else scene_layers
+
+    def resolved_fused_pool(self, *, mirror_wrap: bool = False,
+                            mixed_samplers: bool = False) -> bool:
+        """The fused-mip pool form unless the scene makes it inexact: mirror
+        wrap (the l+1 footprint can leave slot B's window) or per-slot
+        samplers (each texture needs its own rows). The flag cannot force
+        the fused form on for such scenes; it can force it off."""
+        if mirror_wrap or mixed_samplers:
+            return False
+        if self.shade_fused_pool is not None:
+            return self.shade_fused_pool
+        return True
 
     def replace(self, **kwargs) -> "RenderConfig":
         return dataclasses.replace(self, **kwargs)

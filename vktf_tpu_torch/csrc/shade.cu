@@ -1,17 +1,26 @@
-// Deferred shade: MSAA resolve form and depth-peel layer form
-// (ops/shade_kernel.py).
+// Deferred shade: the MSAA resolve form and the depth-peel layer form of
+// every texture configuration (ops/shade_kernel.py).
 //
 // Replaces vktf_tpu/ops/shade_kernel.py `_shade_resolve_kernel` and
-// `_shade_layer_kernel` (body `_shade_block_body`, fused-pool branch, one
-// tap), launched by `_shade_final_call` via `shade_final_chunk`. One thread
-// per pixel (per layer and pixel in the layer form): it
-// reads its winning triangle's 256-byte shade-table row and the one
-// fused-mip pool row that holds both trilinear levels of all three material
-// textures, evaluates the planes at the pixel centre, filters, shades over
-// the lights, then either writes the resolved, sRGB-encoded pixel as
-// r | g<<8 | b<<16 (resolve form) or its linear radiance and alpha (layer
-// form). Both row gathers happen here, so no per-pixel phase-boundary
-// tensor exists.
+// `_shade_layer_kernel` (body `_shade_block_body`: the fused-pool branch
+// with one tap or N taps, and the two-gather `q1` branch),
+// `_attrs_resolve_kernel` and `_attrs_layer_kernel` (body
+// `_attrs_block_body`), all launched by `_shade_final_call`, and the XLA
+// form shade_table.shade_table_layer the JAX package runs for per-slot
+// samplers and for the taps of a two-gather scene. One thread per pixel
+// (per layer and pixel in the layer form). A fragment is
+//   * an input stage: the triangle's 256-byte shade-table row evaluated at
+//     the pixel centre (ColsShade), or phase A's 28 attribute floats
+//     (AttrsShade);
+//   * a texel source, the template parameter kSource: one fused-mip pool
+//     row (slot A for l0, slot B for l1), the classic l0 and l1 rows, or
+//     that pair per texture slot; with kMultiTap the source runs once per
+//     tap at the tap-shifted uv (a runtime count; 1/N is exact for 2, 4, 8)
+//     and the samples are averaged;
+//   * the tail: TBN normal mapping, the BRDF over the lights, alpha mode;
+// then either the resolved, sRGB-encoded pixel as r | g<<8 | b<<16
+// (resolve form) or its linear radiance and alpha (layer form). The row
+// gathers happen here, so no per-pixel phase-boundary tensor exists.
 #include "common.cuh"
 
 namespace {
@@ -22,10 +31,18 @@ constexpr float kPi = 3.1415927f;
 constexpr float kEpsilon = 1.0e-7f;
 constexpr float kPointLightRadius = 0.1f;
 
+// texel sources (ops/shade_kernel.py TEXELS)
+constexpr int kFused = 0, kClassic = 1, kPerSlot = 2;
+
 // shade-table columns (ops/shade_table.py)
 constexpr int C_UV = 3, C_WPOS = 9, C_NRM = 18, C_TAN = 27, C_BASE = 39, C_MR = 43,
               C_NSCALE = 45, C_MROW = 46, C_MW0 = 47, C_MLEVELS = 48, C_SAMP0 = 49,
               C_AMODE = 52, C_ACUT = 53, C_AX = 54, C_AY = 55;
+
+// attrs-boundary rows (ops/shade_kernel.py A_*)
+constexpr int A_FX0 = 0, A_FY0 = 1, A_FX1 = 2, A_FY1 = 3, A_LFRAC = 4, A_CX0 = 5, A_CY0 = 6,
+              A_CX1 = 7, A_CY1 = 8, A_WPOS = 9, A_NRM = 12, A_TAN = 15, A_BASE = 19, A_MR = 23,
+              A_NSCALE = 25, A_AMODE = 26, A_ACUT = 27, kAttrRows = 28;
 
 struct V3 {
   float x, y, z;
@@ -86,6 +103,12 @@ __device__ __forceinline__ LevelAddr level_addr(const TexParams& tp, int level) 
   return a;
 }
 
+// A pool row, its index clamped into the pool.
+__device__ __forceinline__ const uint32_t* pool_row(const uint32_t* pool, int row,
+                                                    int pool_rows) {
+  return pool + (size_t)min(max(row, 0), pool_rows - 1) * kRow;
+}
+
 struct Texels {  // the 2x2 window of one level: base + lane offset per tap
   const uint32_t* row;
   int base, cx, cy;
@@ -112,6 +135,17 @@ __device__ __forceinline__ void filter_slot(const Texels& tx, int slot, float fx
     }
     out[ch] = fma_rn(v[3], w11, fma_rn(v[2], w01, fma_rn(v[0], w00, v[1] * w10)));
   }
+}
+
+// One texture's trilinear sample from its l0 and l1 windows.
+__device__ __forceinline__ void trilinear(const Texels& t0, const Texels& t1, int slot,
+                                          float fx0, float fy0, float fx1, float fy1,
+                                          float lfrac, float out[4]) {
+  float s0[4], s1[4];
+  filter_slot(t0, slot, fx0, fy0, slot == 0, s0);
+  filter_slot(t1, slot, fx1, fy1, slot == 0, s1);
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) out[ch] = fma_rn(s0[ch], 1.0f - lfrac, s1[ch] * lfrac);
 }
 
 __device__ __forceinline__ void material_brdf(const float base[3], float metallic,
@@ -142,117 +176,40 @@ __device__ __forceinline__ void material_brdf(const float base[3], float metalli
   }
 }
 
-// The fragment body shared by both forms: the pixel's radiance over the
-// lights and its effective alpha (0 when uncovered). The math is
-// ops/shade_kernel.py _fragment_plain op for op.
-__device__ __forceinline__ void shade_fragment(int t, float sx, float sy,
-                                               const float* __restrict__ table,
-                                               const uint32_t* __restrict__ pool,
-                                               const float* __restrict__ params, int num_lights,
-                                               int pool_rows, float max_anisotropy,
-                                               float max_anisotropy2, float radiance[3],
-                                               float* alpha_out) {
-  const bool covered = t >= 0;
-  const float* row = table + (size_t)max(t, 0) * kRow;
-  auto col = [&](int c) { return __ldg(row + c); };
+// What the tail reads besides the texture samples.
+struct SurfaceInputs {
+  float base_f[4], mr_f[2], normal_scale, amode, acut;
+  V3 wp;
+  float nr[3], tg[4];
+};
 
-  const float sxa = sx - col(C_AX);
-  const float sya = sy - col(C_AY);
-  const float w = fma_rn(col(0), sxa, col(1) * sya) + col(2);
-  const float inv_w = 1.0f / (fabsf(w) < 1e-30f ? 1e-30f : w);
-  auto attr = [&](int c0) { return (fma_rn(col(c0), sxa, col(c0 + 1) * sya) + col(c0 + 2)) * inv_w; };
-
-  // sampler LOD stage (per texture slot: only the sampler code differs)
-  const float u = attr(C_UV), v = attr(C_UV + 3);
-  const float du_dx = fma_rn(-u, col(0), col(C_UV)) * inv_w;
-  const float du_dy = fma_rn(-u, col(1), col(C_UV + 1)) * inv_w;
-  const float dv_dx = fma_rn(-v, col(0), col(C_UV + 3)) * inv_w;
-  const float dv_dy = fma_rn(-v, col(1), col(C_UV + 4)) * inv_w;
-  const float w0f = col(C_MW0);
-  const float max_level = col(C_MLEVELS) - 1.0f;
-  const float pxd = du_dx * w0f, qxd = dv_dx * w0f;
-  const float pyd = du_dy * w0f, qyd = dv_dy * w0f;
-  const float ddx2 = fma_rn(pxd, pxd, qxd * qxd);
-  const float ddy2 = fma_rn(pyd, pyd, qyd * qyd);
-  const float tiny = 1e-24f;
-  const float rho_max2 = tmax(tmax(ddx2, ddy2), tiny);
-  float lod;
-  if (max_anisotropy > 1.0f) {
-    const float rho_min2 = tmax(tmin(ddx2, ddy2), tiny);
-    const float limit2 = rho_min2 * max_anisotropy2;
-    lod = 0.5f * log2f(tmax(tmin(rho_max2, limit2), tiny));
-  } else {
-    lod = 0.5f * log2f(rho_max2);
-  }
-  lod = tmin(tmax(lod, 0.0f), max_level);
-  const float level0 = floorf(lod);
-  TexParams tp[3];
-#pragma unroll
-  for (int slot = 0; slot < 3; ++slot) {
-    TexParams& q = tp[slot];
-    q.u = u;
-    q.v = v;
-    q.base_row = (int)col(C_MROW);
-    q.w0 = (int)w0f;
-    q.max_level = (int)max_level;
-    const int code = (int)col(C_SAMP0 + slot);
-    const float lfrac = lod - level0;
-    q.lfrac = (code & 64) ? (lfrac >= 0.5f ? 1.0f : 0.0f) : lfrac;
-    const bool is_mag = lod <= 0.0f;
-    q.nearest = (is_mag && (code & 16)) || (!is_mag && (code & 32));
-    q.l0 = (int)level0;
-    q.l1 = min(q.l0 + 1, (int)max_level);
-    q.wrap_u = code & 3;
-    q.wrap_v = (code >> 2) & 3;
-  }
-
-  // fused-mip addressing: one pool row serves both levels
-  const LevelAddr a0 = level_addr(tp[0], tp[0].l0);
-  const LevelAddr a1 = level_addr(tp[0], tp[0].l1);
-  const bool l1_eq = tp[0].l1 == tp[0].l0;
-  const uint32_t* prow = pool + (size_t)min(max(a0.row, 0), pool_rows - 1) * kRow;
-  const Texels tex0{prow, 0, a0.x0 & 1, a0.y0 & 1};
-  const Texels tex_b{prow, kSlotU32, a1.x0 == (a0.x0 >> 1) ? 1 : 0, a1.y0 == (a0.y0 >> 1) ? 1 : 0};
-  const Texels tex1 = l1_eq ? tex0 : tex_b;
-
-  float slot_tex[3][4];
-#pragma unroll
-  for (int slot = 0; slot < 3; ++slot) {
-    const LevelAddr s0a = level_addr(tp[slot], tp[slot].l0);
-    const LevelAddr s1a = level_addr(tp[slot], tp[slot].l1);
-    float s0[4], s1[4];
-    filter_slot(tex0, slot, s0a.fx, s0a.fy, slot == 0, s0);
-    filter_slot(tex1, slot, s1a.fx, s1a.fy, slot == 0, s1);
-    const float lfrac = tp[slot].lfrac;
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch) slot_tex[slot][ch] = fma_rn(s0[ch], 1.0f - lfrac, s1[ch] * lfrac);
-  }
-
-  // TBN + normal mapping
-  const V3 wp{attr(C_WPOS), attr(C_WPOS + 3), attr(C_WPOS + 6)};
-  const float nr[3] = {attr(C_NRM), attr(C_NRM + 3), attr(C_NRM + 6)};
-  const float tg[4] = {attr(C_TAN), attr(C_TAN + 3), attr(C_TAN + 6), attr(C_TAN + 9)};
+// The fragment body after texturing (ops/shade_kernel.py _fragment_tail):
+// factors, TBN normal mapping, the BRDF over the lights (fragment.glsl's
+// light loop), the glTF alpha mode.
+__device__ __forceinline__ void shade_tail(const float slot_tex[3][4], const SurfaceInputs& s,
+                                           const float* __restrict__ params, int num_lights,
+                                           float radiance[3], float* alpha_out) {
   float base_rgba[4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) base_rgba[c] = col(C_BASE + c) * slot_tex[0][c];
-  const float metallic = col(C_MR) * slot_tex[1][2];
-  const float roughness = col(C_MR + 1) * slot_tex[1][1];
-  const V3 nrm = rnorm(nr[0], nr[1], nr[2]);
-  const V3 tang = rnorm(tg[0], tg[1], tg[2]);
+  for (int c = 0; c < 4; ++c) base_rgba[c] = s.base_f[c] * slot_tex[0][c];
+  const float metallic = s.mr_f[0] * slot_tex[1][2];
+  const float roughness = s.mr_f[1] * slot_tex[1][1];
+  const V3 nrm = rnorm(s.nr[0], s.nr[1], s.nr[2]);
+  const V3 tang = rnorm(s.tg[0], s.tg[1], s.tg[2]);
   const V3 bn = rnorm(fma_rn(nrm.y, tang.z, -(nrm.z * tang.y)),
                       fma_rn(nrm.z, tang.x, -(nrm.x * tang.z)),
                       fma_rn(nrm.x, tang.y, -(nrm.y * tang.x)));
-  const V3 bit{bn.x * tg[3], bn.y * tg[3], bn.z * tg[3]};
-  const float ns = col(C_NSCALE);
+  const V3 bit{bn.x * s.tg[3], bn.y * s.tg[3], bn.z * s.tg[3]};
+  const float ns = s.normal_scale;
   const float snx = fma_rn(2.0f, slot_tex[2][0], -1.0f) * ns;
   const float sny = fma_rn(2.0f, slot_tex[2][1], -1.0f) * ns;
   const float snz = fma_rn(2.0f, slot_tex[2][2], -1.0f);
   const V3 normal = rnorm(fma_rn(nrm.x, snz, fma_rn(tang.x, snx, bit.x * sny)),
                           fma_rn(nrm.y, snz, fma_rn(tang.y, snx, bit.y * sny)),
                           fma_rn(nrm.z, snz, fma_rn(tang.z, snx, bit.z * sny)));
+  const V3 wp = s.wp;
   const V3 view = rnorm(params[0] - wp.x, params[1] - wp.y, params[2] - wp.z);
 
-  // BRDF over the lights (fragment.glsl's light loop)
   radiance[0] = radiance[1] = radiance[2] = 0.0f;
   for (int i = 0; i < num_lights; ++i) {
     const float* light = params + 8 + 8 * i;
@@ -275,12 +232,257 @@ __device__ __forceinline__ void shade_fragment(int t, float sx, float sy,
     }
   }
 
-  // glTF alpha mode
   const float a = base_rgba[3];
-  const float amode = col(C_AMODE);
-  const float alpha = amode == 0.0f ? 1.0f : (amode == 1.0f ? (a >= col(C_ACUT) ? 1.0f : 0.0f) : a);
-  *alpha_out = covered ? alpha : 0.0f;
+  *alpha_out = s.amode == 0.0f ? 1.0f : (s.amode == 1.0f ? (a >= s.acut ? 1.0f : 0.0f) : a);
 }
+
+// ---- the table-row input stage -------------------------------------------
+
+// A triangle's row evaluated at the pixel: anchored, perspective-correct.
+struct RowFrag {
+  const float* row;
+  float sxa, sya, inv_w;
+  __device__ __forceinline__ float col(int c) const { return __ldg(row + c); }
+  __device__ __forceinline__ float attr(int c0) const {
+    return (fma_rn(col(c0), sxa, col(c0 + 1) * sya) + col(c0 + 2)) * inv_w;
+  }
+};
+
+__device__ __forceinline__ RowFrag row_frag(const float* __restrict__ table, int t, float sx,
+                                            float sy) {
+  RowFrag f;
+  f.row = table + (size_t)t * kRow;
+  f.sxa = sx - f.col(C_AX);
+  f.sya = sy - f.col(C_AY);
+  const float w = fma_rn(f.col(0), f.sxa, f.col(1) * f.sya) + f.col(2);
+  f.inv_w = 1.0f / (fabsf(w) < 1e-30f ? 1e-30f : w);
+  return f;
+}
+
+// The sampler's LOD stage, common to the three slots and every tap
+// (ops/shade_kernel.py _texture_params): uv, the clamped lod, and for
+// taps the major footprint axis and its clamped length.
+struct Footprint {
+  float u, v, lod, level0, max_level, adu, adv, scale;
+};
+
+template <bool kMultiTap>
+__device__ __forceinline__ Footprint footprint(const RowFrag& f, float max_anisotropy,
+                                               float max_anisotropy2) {
+  Footprint fp;
+  fp.u = f.attr(C_UV);
+  fp.v = f.attr(C_UV + 3);
+  const float du_dx = fma_rn(-fp.u, f.col(0), f.col(C_UV)) * f.inv_w;
+  const float du_dy = fma_rn(-fp.u, f.col(1), f.col(C_UV + 1)) * f.inv_w;
+  const float dv_dx = fma_rn(-fp.v, f.col(0), f.col(C_UV + 3)) * f.inv_w;
+  const float dv_dy = fma_rn(-fp.v, f.col(1), f.col(C_UV + 4)) * f.inv_w;
+  const float w0f = f.col(C_MW0);
+  fp.max_level = f.col(C_MLEVELS) - 1.0f;
+  const float pxd = du_dx * w0f, qxd = dv_dx * w0f;
+  const float pyd = du_dy * w0f, qyd = dv_dy * w0f;
+  const float ddx2 = fma_rn(pxd, pxd, qxd * qxd);
+  const float ddy2 = fma_rn(pyd, pyd, qyd * qyd);
+  const float tiny = 1e-24f;
+  if (kMultiTap) {
+    const bool major_x = ddx2 >= ddy2;
+    fp.adu = major_x ? du_dx : du_dy;
+    fp.adv = major_x ? dv_dx : dv_dy;
+    const float rho_maj = sqrtf(tmax(tmax(ddx2, ddy2), tiny));
+    const float rho_min = sqrtf(tmax(tmin(ddx2, ddy2), tiny));
+    fp.scale = tmin(1.0f, max_anisotropy * rho_min / rho_maj);
+  }
+  const float rho_max2 = tmax(tmax(ddx2, ddy2), tiny);
+  float lod;
+  if (max_anisotropy > 1.0f) {
+    const float rho_min2 = tmax(tmin(ddx2, ddy2), tiny);
+    const float limit2 = rho_min2 * max_anisotropy2;
+    lod = 0.5f * log2f(tmax(tmin(rho_max2, limit2), tiny));
+  } else {
+    lod = 0.5f * log2f(rho_max2);
+  }
+  fp.lod = tmin(tmax(lod, 0.0f), fp.max_level);
+  fp.level0 = floorf(fp.lod);
+  return fp;
+}
+
+// Each slot's sampler parameters at the sample position (u, v).
+__device__ __forceinline__ void tex_params(const Footprint& fp, const RowFrag& f, float u,
+                                           float v, TexParams tp[3]) {
+#pragma unroll
+  for (int slot = 0; slot < 3; ++slot) {
+    TexParams& q = tp[slot];
+    q.u = u;
+    q.v = v;
+    q.base_row = (int)f.col(C_MROW);
+    q.w0 = (int)f.col(C_MW0);
+    q.max_level = (int)fp.max_level;
+    const int code = (int)f.col(C_SAMP0 + slot);
+    const float lfrac = fp.lod - fp.level0;
+    q.lfrac = (code & 64) ? (lfrac >= 0.5f ? 1.0f : 0.0f) : lfrac;
+    const bool is_mag = fp.lod <= 0.0f;
+    q.nearest = (is_mag && (code & 16)) || (!is_mag && (code & 32));
+    q.l0 = (int)fp.level0;
+    q.l1 = min(q.l0 + 1, (int)fp.max_level);
+    q.wrap_u = code & 3;
+    q.wrap_v = (code >> 2) & 3;
+  }
+}
+
+// ---- texel sources ----------------------------------------------------------
+
+// The classic pair of one sampler: the l0 row and the l1 row, slot A, each
+// with its own fold case.
+__device__ __forceinline__ void classic_pair(const TexParams& tp, const uint32_t* pool,
+                                             int pool_rows, Texels& t0, Texels& t1) {
+  const LevelAddr a0 = level_addr(tp, tp.l0);
+  const LevelAddr a1 = level_addr(tp, tp.l1);
+  t0 = Texels{pool_row(pool, a0.row, pool_rows), 0, a0.x0 & 1, a0.y0 & 1};
+  t1 = Texels{pool_row(pool, a1.row, pool_rows), 0, a1.x0 & 1, a1.y0 & 1};
+}
+
+// The three slots' trilinear samples at one (possibly tap-shifted)
+// position, from the texel source kSource.
+template <int kSource>
+__device__ __forceinline__ void sample_slots(const TexParams tp[3], const uint32_t* pool,
+                                             int pool_rows, float out[3][4]) {
+  Texels t0[3], t1[3];
+  if (kSource == kFused) {
+    // one row serves both levels: slot A for l0, slot B (l1, anchored at
+    // the l0 block minus one) for l1, slot A again at the chain top
+    const LevelAddr a0 = level_addr(tp[0], tp[0].l0);
+    const LevelAddr a1 = level_addr(tp[0], tp[0].l1);
+    const uint32_t* prow = pool_row(pool, a0.row, pool_rows);
+    const Texels tex0{prow, 0, a0.x0 & 1, a0.y0 & 1};
+    const Texels tex_b{prow, kSlotU32, a1.x0 == (a0.x0 >> 1) ? 1 : 0,
+                       a1.y0 == (a0.y0 >> 1) ? 1 : 0};
+    const Texels tex1 = tp[0].l1 == tp[0].l0 ? tex0 : tex_b;
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      t0[s] = tex0;
+      t1[s] = tex1;
+    }
+  } else if (kSource == kClassic) {
+    Texels tex0, tex1;
+    classic_pair(tp[0], pool, pool_rows, tex0, tex1);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      t0[s] = tex0;
+      t1[s] = tex1;
+    }
+  } else {  // kPerSlot: each texture's rows at its own wrap
+#pragma unroll
+    for (int s = 0; s < 3; ++s) classic_pair(tp[s], pool, pool_rows, t0[s], t1[s]);
+  }
+#pragma unroll
+  for (int slot = 0; slot < 3; ++slot) {
+    const LevelAddr s0 = level_addr(tp[slot], tp[slot].l0);
+    const LevelAddr s1 = level_addr(tp[slot], tp[slot].l1);
+    trilinear(t0[slot], t1[slot], slot, s0.fx, s0.fy, s1.fx, s1.fy, tp[slot].lfrac, out[slot]);
+  }
+}
+
+// ---- fragment stages --------------------------------------------------------
+
+struct ColsArgs {
+  const float* table;
+  const uint32_t* pool;
+  const float* sx;
+  const float* sy;
+  const float* params;
+  int num_lights, pool_rows, taps;
+  float max_anisotropy, max_anisotropy2;
+};
+
+// A fragment from its shade-table row, texels from kSource, kMultiTap: the
+// average of a.taps samples along the major footprint axis.
+template <int kSource, bool kMultiTap>
+struct ColsShade {
+  ColsArgs a;
+  __device__ __forceinline__ void operator()(int t, int /*layer*/, size_t p, float radiance[3],
+                                             float* alpha) const {
+    const RowFrag f = row_frag(a.table, t, a.sx[p], a.sy[p]);
+    const Footprint fp = footprint<kMultiTap>(f, a.max_anisotropy, a.max_anisotropy2);
+    float slot_tex[3][4];
+    TexParams tp[3];
+    if (!kMultiTap) {
+      tex_params(fp, f, fp.u, fp.v, tp);
+      sample_slots<kSource>(tp, a.pool, a.pool_rows, slot_tex);
+    } else {
+      for (int i = 0; i < a.taps; ++i) {
+        const float step = ((i + 0.5f) / a.taps - 0.5f) * fp.scale;
+        tex_params(fp, f, fma_rn(step, fp.adu, fp.u), fma_rn(step, fp.adv, fp.v), tp);
+        float st[3][4];
+        sample_slots<kSource>(tp, a.pool, a.pool_rows, st);
+#pragma unroll
+        for (int s = 0; s < 3; ++s)
+#pragma unroll
+          for (int ch = 0; ch < 4; ++ch) slot_tex[s][ch] = i == 0 ? st[s][ch] : slot_tex[s][ch] + st[s][ch];
+      }
+      const float inv = 1.0f / a.taps;
+#pragma unroll
+      for (int s = 0; s < 3; ++s)
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) slot_tex[s][ch] *= inv;
+    }
+    SurfaceInputs s;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s.base_f[c] = f.col(C_BASE + c);
+    s.mr_f[0] = f.col(C_MR);
+    s.mr_f[1] = f.col(C_MR + 1);
+    s.normal_scale = f.col(C_NSCALE);
+    s.amode = f.col(C_AMODE);
+    s.acut = f.col(C_ACUT);
+    s.wp = V3{f.attr(C_WPOS), f.attr(C_WPOS + 3), f.attr(C_WPOS + 6)};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s.nr[c] = f.attr(C_NRM + 3 * c);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s.tg[c] = f.attr(C_TAN + 3 * c);
+    shade_tail(slot_tex, s, a.params, a.num_lights, radiance, alpha);
+  }
+};
+
+// A fragment from phase A's attribute rows (AttrsShade: rows strided by n
+// within a layer) and its two pool rows: one footprint for all slots.
+struct AttrsShade {
+  const float* attrs;
+  const int* r0;
+  const int* r1;
+  const uint32_t* pool;
+  const float* params;
+  int num_lights, pool_rows, n;
+  __device__ __forceinline__ void operator()(int /*t*/, int layer, size_t p, float radiance[3],
+                                             float* alpha) const {
+    const float* a = attrs + (size_t)layer * kAttrRows * n + p;
+    auto row = [&](int i) { return __ldg(a + (size_t)i * n); };
+    const size_t q = (size_t)layer * n + p;
+    const Texels t0{pool_row(pool, r0[q], pool_rows), 0, row(A_CX0) != 0.0f ? 1 : 0,
+                    row(A_CY0) != 0.0f ? 1 : 0};
+    const Texels t1{pool_row(pool, r1[q], pool_rows), 0, row(A_CX1) != 0.0f ? 1 : 0,
+                    row(A_CY1) != 0.0f ? 1 : 0};
+    const float fx0 = row(A_FX0), fy0 = row(A_FY0), fx1 = row(A_FX1), fy1 = row(A_FY1);
+    const float lfrac = row(A_LFRAC);
+    float slot_tex[3][4];
+#pragma unroll
+    for (int slot = 0; slot < 3; ++slot)
+      trilinear(t0, t1, slot, fx0, fy0, fx1, fy1, lfrac, slot_tex[slot]);
+    SurfaceInputs s;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s.base_f[c] = row(A_BASE + c);
+    s.mr_f[0] = row(A_MR);
+    s.mr_f[1] = row(A_MR + 1);
+    s.normal_scale = row(A_NSCALE);
+    s.amode = row(A_AMODE);
+    s.acut = row(A_ACUT);
+    s.wp = V3{row(A_WPOS), row(A_WPOS + 1), row(A_WPOS + 2)};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s.nr[c] = row(A_NRM + c);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s.tg[c] = row(A_TAN + c);
+    shade_tail(slot_tex, s, params, num_lights, radiance, alpha);
+  }
+};
+
+// ---- kernels ----------------------------------------------------------------
 
 // sRGB encode and u8 quantization of a value in [0, 1]
 __device__ __forceinline__ int srgb_u8(float v) {
@@ -290,27 +492,23 @@ __device__ __forceinline__ int srgb_u8(float v) {
 }
 
 // Resolve form (one layer): composite over the clear colour, coverage
-// resolve, sRGB encode, packed r | g << 8 | b << 16.
-__global__ void shade_kernel(const int* __restrict__ tri, const float* __restrict__ sx_in,
-                             const float* __restrict__ sy_in, const float* __restrict__ frac_in,
-                             const float* __restrict__ table, const uint32_t* __restrict__ pool,
-                             const float* __restrict__ params, int* __restrict__ out, int n,
-                             int num_lights, int pool_rows, float max_anisotropy,
-                             float max_anisotropy2) {
+// resolve, sRGB encode, packed r | g << 8 | b << 16. An uncovered pixel
+// composites nothing (rgb 0, alpha 0) and is not shaded.
+template <class Shade>
+__global__ void resolve_kernel(Shade shade, const int* __restrict__ tri,
+                               const float* __restrict__ frac_in, const float* __restrict__ params,
+                               int* __restrict__ out, int n) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
   const int t = tri[p];
-  float radiance[3], alpha;
-  shade_fragment(t, sx_in[p], sy_in[p], table, pool, params, num_lights, pool_rows,
-                 max_anisotropy, max_anisotropy2, radiance, &alpha);
-  const bool covered = t >= 0;
+  float radiance[3] = {0.0f, 0.0f, 0.0f}, alpha = 0.0f;
+  if (t >= 0) shade(t, 0, p, radiance, &alpha);
   const float frac = frac_in[p];
   int packed = 0;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float bg = params[4 + c];
-    const float rgb = covered ? radiance[c] : 0.0f;
-    const float comp = fma_rn(rgb, alpha, bg * (1.0f - alpha));
+    const float comp = fma_rn(radiance[c], alpha, bg * (1.0f - alpha));
     const float resolved = fma_rn(comp, frac, bg * (1.0f - frac));
     packed |= srgb_u8(tmin(tmax(resolved, 0.0f), 1.0f)) << (8 * c);
   }
@@ -320,53 +518,112 @@ __global__ void shade_kernel(const int* __restrict__ tri, const float* __restric
 // Layer form: every (layer, pixel) of a (K, N) id array, one thread each;
 // linear radiance (K, 3, N) and effective alpha (K, N) for the host-side
 // composite. An uncovered entry writes zeros and returns.
-__global__ void shade_layer_kernel(const int* __restrict__ tri, const float* __restrict__ sx_in,
-                                   const float* __restrict__ sy_in,
-                                   const float* __restrict__ table,
-                                   const uint32_t* __restrict__ pool,
-                                   const float* __restrict__ params, float* __restrict__ out_rgb,
-                                   float* __restrict__ out_alpha, int n, int layers,
-                                   int num_lights, int pool_rows, float max_anisotropy,
-                                   float max_anisotropy2) {
+template <class Shade>
+__global__ void layer_kernel(Shade shade, const int* __restrict__ tri, float* __restrict__ out_rgb,
+                             float* __restrict__ out_alpha, int n, int layers) {
   const size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= (size_t)n * layers) return;
   const size_t l = q / n;
   const size_t p = q - l * n;
   const int t = tri[q];
   float radiance[3] = {0.0f, 0.0f, 0.0f}, alpha = 0.0f;
-  if (t >= 0)
-    shade_fragment(t, sx_in[p], sy_in[p], table, pool, params, num_lights, pool_rows,
-                   max_anisotropy, max_anisotropy2, radiance, &alpha);
+  if (t >= 0) shade(t, (int)l, p, radiance, &alpha);
 #pragma unroll
   for (int c = 0; c < 3; ++c) out_rgb[(l * 3 + c) * n + p] = radiance[c];
   out_alpha[q] = alpha;
 }
 
-}  // namespace
+constexpr int kThreads = 128;
 
-VKTF_EXPORT int vktf_shade_resolve(const int* tri, const float* sx, const float* sy,
-                                   const float* frac, const float* table, const uint32_t* pool,
-                                   const float* params, int* out, int n, int num_lights,
-                                   int pool_rows, float max_anisotropy, float max_anisotropy2,
-                                   cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  shade_kernel<<<blocks, threads, 0, stream>>>(tri, sx, sy, frac, table, pool, params, out, n,
-                                               num_lights, pool_rows, max_anisotropy,
-                                               max_anisotropy2);
+template <class Shade>
+int launch_resolve(const Shade& shade, const int* tri, const float* frac, const float* params,
+                   int* out, int n, cudaStream_t stream) {
+  resolve_kernel<Shade><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      shade, tri, frac, params, out, n);
   return launch_status();
 }
 
-VKTF_EXPORT int vktf_shade_layer(const int* tri, const float* sx, const float* sy,
-                                 const float* table, const uint32_t* pool, const float* params,
-                                 float* out_rgb, float* out_alpha, int n, int layers,
-                                 int num_lights, int pool_rows, float max_anisotropy,
-                                 float max_anisotropy2, cudaStream_t stream) {
-  const int threads = 128;
+template <class Shade>
+int launch_layer(const Shade& shade, const int* tri, float* out_rgb, float* out_alpha, int n,
+                 int layers, cudaStream_t stream) {
   const long long total = (long long)n * layers;
-  const int blocks = (int)((total + threads - 1) / threads);
-  shade_layer_kernel<<<blocks, threads, 0, stream>>>(tri, sx, sy, table, pool, params, out_rgb,
-                                                     out_alpha, n, layers, num_lights, pool_rows,
-                                                     max_anisotropy, max_anisotropy2);
+  layer_kernel<Shade><<<(int)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      shade, tri, out_rgb, out_alpha, n, layers);
   return launch_status();
+}
+
+template <int kSource, bool kMultiTap>
+int cols_resolve(const ColsArgs& a, const int* tri, const float* frac, int* out, int n,
+                 cudaStream_t stream) {
+  return launch_resolve(ColsShade<kSource, kMultiTap>{a}, tri, frac, a.params, out, n, stream);
+}
+
+template <int kSource, bool kMultiTap>
+int cols_layer(const ColsArgs& a, const int* tri, float* out_rgb, float* out_alpha, int n,
+               int layers, cudaStream_t stream) {
+  return launch_layer(ColsShade<kSource, kMultiTap>{a}, tri, out_rgb, out_alpha, n, layers,
+                      stream);
+}
+
+}  // namespace
+
+// texels: 0 fused, 1 classic, 2 per-slot; taps: 1, 2, 4 or 8.
+VKTF_EXPORT int vktf_shade_resolve(int texels, int taps, const int* tri, const float* sx,
+                                   const float* sy, const float* frac, const float* table,
+                                   const uint32_t* pool, const float* params, int* out, int n,
+                                   int num_lights, int pool_rows, float max_anisotropy,
+                                   float max_anisotropy2, cudaStream_t stream) {
+  const ColsArgs a{table, pool, sx, sy, params, num_lights, pool_rows, taps, max_anisotropy,
+                   max_anisotropy2};
+  const bool multi = taps > 1;
+  switch (texels) {
+    case kFused:
+      return multi ? cols_resolve<kFused, true>(a, tri, frac, out, n, stream)
+                   : cols_resolve<kFused, false>(a, tri, frac, out, n, stream);
+    case kClassic:
+      return multi ? cols_resolve<kClassic, true>(a, tri, frac, out, n, stream)
+                   : cols_resolve<kClassic, false>(a, tri, frac, out, n, stream);
+    case kPerSlot:
+      return multi ? cols_resolve<kPerSlot, true>(a, tri, frac, out, n, stream)
+                   : cols_resolve<kPerSlot, false>(a, tri, frac, out, n, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+VKTF_EXPORT int vktf_shade_layer(int texels, int taps, const int* tri, const float* sx,
+                                 const float* sy, const float* table, const uint32_t* pool,
+                                 const float* params, float* out_rgb, float* out_alpha, int n,
+                                 int layers, int num_lights, int pool_rows, float max_anisotropy,
+                                 float max_anisotropy2, cudaStream_t stream) {
+  const ColsArgs a{table, pool, sx, sy, params, num_lights, pool_rows, taps, max_anisotropy,
+                   max_anisotropy2};
+  const bool multi = taps > 1;
+  switch (texels) {
+    case kFused:
+      return multi ? cols_layer<kFused, true>(a, tri, out_rgb, out_alpha, n, layers, stream)
+                   : cols_layer<kFused, false>(a, tri, out_rgb, out_alpha, n, layers, stream);
+    case kClassic:
+      return multi ? cols_layer<kClassic, true>(a, tri, out_rgb, out_alpha, n, layers, stream)
+                   : cols_layer<kClassic, false>(a, tri, out_rgb, out_alpha, n, layers, stream);
+    case kPerSlot:
+      return multi ? cols_layer<kPerSlot, true>(a, tri, out_rgb, out_alpha, n, layers, stream)
+                   : cols_layer<kPerSlot, false>(a, tri, out_rgb, out_alpha, n, layers, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+VKTF_EXPORT int vktf_shade_attrs_resolve(const float* attrs, const int* r0, const int* r1,
+                                         const int* tri, const float* frac, const uint32_t* pool,
+                                         const float* params, int* out, int n, int num_lights,
+                                         int pool_rows, cudaStream_t stream) {
+  return launch_resolve(AttrsShade{attrs, r0, r1, pool, params, num_lights, pool_rows, n}, tri,
+                        frac, params, out, n, stream);
+}
+
+VKTF_EXPORT int vktf_shade_attrs_layer(const float* attrs, const int* r0, const int* r1,
+                                       const int* tri, const uint32_t* pool, const float* params,
+                                       float* out_rgb, float* out_alpha, int n, int layers,
+                                       int num_lights, int pool_rows, cudaStream_t stream) {
+  return launch_layer(AttrsShade{attrs, r0, r1, pool, params, num_lights, pool_rows, n}, tri,
+                      out_rgb, out_alpha, n, layers, stream);
 }

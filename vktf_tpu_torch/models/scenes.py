@@ -9,9 +9,15 @@ is lossless, so the texels are the same without needing a zstd codec.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from vktf_tpu_torch.loaders.gltf import (
+    CLAMP_TO_EDGE,
+    MIRRORED_REPEAT,
+    NEAREST,
+    REPEAT,
     Asset,
     Light,
     Material,
@@ -420,6 +426,41 @@ def set_blend(assets):
                 factor[3] = 0.5
                 pbr.base_color_factor = factor
     return assets
+
+
+def set_samplers(assets, base=None, mr=None, normal=None):
+    """Give each material's base-colour, metallic-roughness and normal
+    textures their own sampler: each argument is a dict of the Sampler
+    fields to set on that slot (wrap_u, wrap_v, mag_filter, min_filter,
+    mipmap_mode), or None to leave it. New Sampler objects replace the one
+    a material's textures share, so slots never alias. Touches only fields
+    the JAX package's Sampler has too, so it edits its assets as well. In
+    place; returns assets."""
+    for asset in assets:
+        for material in asset.materials:
+            pbr = material.pbr_metallic_roughness
+            slots = ((pbr.base_color_texture if pbr else None, base),
+                     (pbr.metallic_roughness_texture if pbr else None, mr),
+                     (material.normal_texture, normal))
+            for texture, fields in slots:
+                if texture is None or fields is None:
+                    continue
+                texture.sampler = (Sampler(**fields) if texture.sampler is None
+                                   else dataclasses.replace(texture.sampler, **fields))
+    return assets
+
+
+# Sampler presets of set_samplers: every sampler MIRRORED_REPEAT (mirror
+# sponza: the two-gather pool), and per-slot samplers that differ (mixed
+# sponza: base REPEAT, metallic-roughness CLAMP_TO_EDGE, normal
+# MIRRORED_REPEAT with NEAREST magnification; tests/test_textures.py:219-226)
+_MIRROR = {"wrap_u": MIRRORED_REPEAT, "wrap_v": MIRRORED_REPEAT}
+SAMPLER_PRESETS = {
+    "mirror": {"base": _MIRROR, "mr": _MIRROR, "normal": _MIRROR},
+    "mixed": {"base": {"wrap_u": REPEAT, "wrap_v": REPEAT},
+              "mr": {"wrap_u": CLAMP_TO_EDGE, "wrap_v": CLAMP_TO_EDGE},
+              "normal": {**_MIRROR, "mag_filter": NEAREST}},
+}
 
 
 PRESETS = {

@@ -2,11 +2,20 @@
 table, per-pixel winner, shade and resolve, on one device.
 
 Counterpart of ``vktf_tpu/ops/pipeline.py`` ``PallasFrameProgram`` at the
-configuration the port renders (pixel-rate shading, K = 1..8 depth-peel
-layers, fused-mip pool, one texture tap). K is
+configuration the port renders: pixel-rate shading, K = 1..8 depth-peel
+layers, every texture configuration. K is
 ``config.resolved_peel_layers(meta.peel_layers)``: 1 for opaque scenes,
-1 + the translucent instances (at most 8) for MASK/BLEND ones. Stages, in
-order:
+1 + the translucent instances (at most 8) for MASK/BLEND ones. The shade
+form (``shade_form``) follows the JAX program's routing
+(``vktf_tpu/ops/pipeline.py:1082-1131``, ``:346-462``): the fused-mip pool
+by default; the two-gather ("classic") pool for mirror-wrap scenes or
+``shade_fused_pool=False``; per-slot rows for mixed-sampler scenes;
+``aniso_taps`` N > 1 taps on whichever of these the scene takes (the JAX
+package runs the taps of a two-gather scene in XLA; here the same CUDA
+template runs them); ``shade_attrs_boundary`` the attrs kernels, unless
+taps or mixed samplers send the frame to the two-gather multi-tap or
+per-slot form, as in the JAX program. Nothing falls back to a cheaper
+form. Stages, in order:
 
   1. scene update (cached per scene): node transforms, world lights, the
      (16, T) per-triangle instance-matrix rows;
@@ -17,13 +26,15 @@ order:
      which keeps the K nearest (depth, id) fragments of every sample;
   5. shade-table kernel (``ops/shade_table.py``);
   6. phase A in plain torch: per layer, the per-pixel winner (min depth,
-     then min id) and layer 0's sample coverage fraction;
-  7. K = 1: the fused shade + resolve kernel (``ops/shade_kernel.py``),
+     then min id) and layer 0's sample coverage fraction; with the attrs
+     boundary also the 28 attribute rows and two pool rows of every
+     (layer, pixel) (``shade_kernel.fragment_attrs``, stage "attrs");
+  7. K = 1: the shade + resolve kernel of the form (``ops/shade_kernel.py``),
      which gathers the table and pool rows itself. K > 1: the layer shade
-     kernel, one launch over all K layers (linear radiance and alpha per
-     layer and pixel), then in plain torch the front-to-back composite
-     over the clear colour, the coverage resolve and the sRGB encode
-     (``composite_resolve``; XLA ops outside any kernel in the JAX
+     kernel of the form, one launch over all K layers (linear radiance and
+     alpha per layer and pixel), then in plain torch the front-to-back
+     composite over the clear colour, the coverage resolve and the sRGB
+     encode (``composite_resolve``; XLA ops outside any kernel in the JAX
      package, too);
   8. present: unpack the bytes and crop the tile padding (``ops/present.py``).
 
@@ -33,7 +44,7 @@ sponza 1080p 4x MSAA, CUDA-event stage medians): the opaque frame takes
 kernels take 1.25 + 1.13 ms and the plain-torch stages around them most of
 the rest (composite 3.3 ms, K-layer winner 1.2 ms: passes over the
 (K, 3, N) layer outputs and the (K, S, H, W) raster output, each bound by
-memory traffic).
+memory traffic). The other forms' stage times are in PERF.md.
 
 The JAX program ran the setup kernel twice (a second pass over
 Morton-permuted inputs) and split the shade into two programs; both were
@@ -43,12 +54,13 @@ TPU layout economies that leave the frame unchanged, and are not copied.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
-from vktf_tpu_torch.config import RenderConfig
+from vktf_tpu_torch.config import PEEL_LAYERS_MAX, RenderConfig
 from vktf_tpu_torch.ops import present, raster, setup_kernel, shade_kernel, shade_table
 from vktf_tpu_torch.ops.fmath import f32, fma
 from vktf_tpu_torch.ops.vertex import propagate_transforms
@@ -123,6 +135,35 @@ def pixel_centers(height: int, width: int, device):
             (ys.float() + 0.5).reshape(-1).contiguous())
 
 
+@dataclasses.dataclass(frozen=True)
+class ShadeForm:
+    """The shade FrameProgram runs: the texel source (one of
+    shade_kernel.TEXELS), the tap count, and whether the attrs boundary
+    splits it."""
+
+    texels: str
+    taps: int
+    attrs: bool = False
+
+
+def shade_form(config: RenderConfig, meta: SceneMeta) -> ShadeForm:
+    """The JAX frame program's choice for this configuration and scene:
+    its XLA form shades mixed-sampler scenes per slot and the taps of a
+    two-gather scene (attrs boundary included), its attrs kernels the
+    attrs boundary at one tap, its fused or classic kernel the rest."""
+    fused = config.resolved_fused_pool(mirror_wrap=meta.mirror_wrap,
+                                       mixed_samplers=meta.mixed_samplers)
+    attrs = config.shade_attrs_boundary
+    taps = config.aniso_taps
+    if meta.mixed_samplers:
+        return ShadeForm("per_slot", taps)
+    if taps > 1 and (attrs or not fused):
+        return ShadeForm("classic", taps)
+    if attrs:
+        return ShadeForm("classic", 1, attrs=True)
+    return ShadeForm("fused" if fused else "classic", taps)
+
+
 class _StageTimer:
     """CUDA-event stage timing, on only when asked for (one event pair
     per stage; read after the frame synchronizes)."""
@@ -151,12 +192,13 @@ class FrameProgram:
     CPU, the CUDA kernels on a card)."""
 
     def __init__(self, meta: SceneMeta, config: RenderConfig):
-        if meta.mixed_samplers or meta.mirror_wrap:
-            raise ValueError("mixed-sampler and mirror-wrap scenes need the "
-                             "two-gather texture path, which is not ported")
         self.meta = meta
         self.config = config
         self.layers = config.resolved_peel_layers(meta.peel_layers)
+        if not 1 <= self.layers <= PEEL_LAYERS_MAX:
+            raise ValueError(f"the scene asks for {self.layers} peel layers; the raster "
+                             f"kernel keeps 1..{PEEL_LAYERS_MAX}")
+        self.form = shade_form(config, meta)
         self._scene_key = None
         self._scene_state = None
         self._perm = None
@@ -224,16 +266,29 @@ class FrameProgram:
             tri, frac = pixel_winner(ids, depth)
         background = torch.tensor(cfg.clear_color[:3], dtype=torch.float32,
                                   device=dev)
+        form, pool = self.form, scene.quad_pool
+        if form.attrs:
+            with self._stage("attrs"):
+                attrs = shade_kernel.fragment_attrs(tri, *self._centers, table,
+                                                    cfg.max_anisotropy)
         if self.layers == 1:
             with self._stage("shade"):
-                packed = shade_kernel.shade_resolve(
-                    tri, *self._centers, frac, table, scene.quad_pool, cam, lights,
-                    background, cfg.max_anisotropy)
+                if form.attrs:
+                    packed = shade_kernel.shade_attrs_resolve(
+                        *attrs, tri, frac, pool, cam, lights, background)
+                else:
+                    packed = shade_kernel.shade_resolve(
+                        tri, *self._centers, frac, table, pool, cam, lights,
+                        background, cfg.max_anisotropy, form.texels, form.taps)
         else:
             with self._stage("shade"):
-                rgb, alpha = shade_kernel.shade_layer(
-                    tri, *self._centers, table, scene.quad_pool, cam, lights,
-                    cfg.max_anisotropy)
+                if form.attrs:
+                    rgb, alpha = shade_kernel.shade_attrs_layer(*attrs, tri, pool, cam,
+                                                                lights)
+                else:
+                    rgb, alpha = shade_kernel.shade_layer(
+                        tri, *self._centers, table, pool, cam, lights,
+                        cfg.max_anisotropy, form.texels, form.taps)
             with self._stage("composite"):
                 packed = composite_resolve(rgb, alpha, frac, background)
         with self._stage("present"):
