@@ -13,14 +13,16 @@ Needs one CUDA card and nvcc. In order, it:
      0 just before and read just after, printing per-stage CUDA-event
      times and the frame time;
   5. holds each K = 1 kernel against its plain PyTorch version on the
-     card, at the shapes the frame gave it, and times both;
+     card, at the shapes the frame gave it, and times both; prints what
+     the raster kernel stages for the frame's stream (staging_counts);
   6. renders the same scene at a forced peel_layers=2: the frame must
      equal the K = 1 frame;
   7. the translucent path: the sponza preset with its curtain and clutter
      materials BLEND at alpha 0.5 (K = 8 from the scene), frames through
      Scene.render_async with the counters zeroed and read, the K-layer
-     raster and the layer shade held against their plain versions and
-     timed, and the stage-by-stage frame against the Scene frame;
+     raster (and its staging counts) and the layer shade held against their
+     plain versions and timed, and the stage-by-stage frame against the
+     Scene frame;
   8. the texture side paths, each a path of its own through Scene with
      the counters zeroed and read, its kernel held against its plain
      version at the frame's shapes and timed:
@@ -174,6 +176,46 @@ def raster_bound(stream, height: int, width: int, samples: int, layers: int):
     return bound(nbytes, float(area.double().sum()) * samples * RASTER_OPS)
 
 
+def staging_counts(stream, height: int, width: int, block: int = 16) -> dict:
+    """What the raster kernel stages for this stream, counted in torch: per
+    16x16 block its hit chunks (chunk bbox overlaps the block) and its
+    touching triangles (valid, bbox overlaps the block); per frame the bytes
+    its triangle tests read into registers (5 rows of 1 KB per hit chunk)
+    and the bytes it stages into shared memory (24 floats per touching
+    triangle, 19 of them gathered by cp.async), beside the earlier design,
+    which staged all 32 rows of every hit chunk (32 KB)."""
+    tri_data, tri_bbox, chunk_bbox = stream
+    dev = tri_data.device
+    bx = torch.arange(0, width, block, device=dev, dtype=torch.float32)
+    by = torch.arange(0, height, block, device=dev, dtype=torch.float32)
+    hx = (chunk_bbox[0][None] < (bx + block)[:, None]) & (chunk_bbox[2][None] > bx[:, None])
+    hy = (chunk_bbox[1][None] < (by + block)[:, None]) & (chunk_bbox[3][None] > by[:, None])
+    hits = hy.double() @ hx.double().T  # (blocks y, blocks x)
+    box = tri_bbox[:4, tri_data[15] >= 0].double()
+    # the blocks a bbox touches: 16 i < x1 and 16 i + 16 > x0
+    i0 = torch.floor(box[0] / block).clamp(0, bx.numel()).long()
+    i1 = (torch.ceil(box[2] / block) - 1).clamp(-1, bx.numel() - 1).long()
+    j0 = torch.floor(box[1] / block).clamp(0, by.numel()).long()
+    j1 = (torch.ceil(box[3] / block) - 1).clamp(-1, by.numel() - 1).long()
+    keep = (i1 >= i0) & (j1 >= j0)
+    i0, i1, j0, j1 = i0[keep], i1[keep], j0[keep], j1[keep]
+    diff = torch.zeros((by.numel() + 1, bx.numel() + 1), dtype=torch.float64, device=dev)
+    ones = torch.ones_like(i0, dtype=torch.float64)
+    for jj, ii, sign in ((j0, i0, 1), (j0, i1 + 1, -1), (j1 + 1, i0, -1), (j1 + 1, i1 + 1, 1)):
+        diff.index_put_((jj, ii), sign * ones, accumulate=True)
+    touch = diff.cumsum(0).cumsum(1)[:-1, :-1]
+    n_hits, n_touch = float(hits.sum()), float(touch.sum())
+    return {"blocks": hits.numel(), "chunks": chunk_bbox.shape[1],
+            "hit_chunks_per_block_mean": round(n_hits / hits.numel(), 3),
+            "hit_chunks_per_block_max": int(hits.max()),
+            "touching_tris_per_block_mean": round(n_touch / hits.numel(), 3),
+            "touching_tris_per_block_max": int(touch.max()),
+            "block_chunk_hits": int(n_hits), "block_tri_touches": int(n_touch),
+            "test_read_mb": round(n_hits * 5 * 1024 / 1e6, 3),
+            "staged_mb": round(n_touch * 24 * 4 / 1e6, 3),
+            "staged_mb_whole_chunks": round(n_hits * 32 * 1024 / 1e6, 3)}
+
+
 def shade_bound(tri, sx, sy, table, max_anisotropy: float, num_lights: int, layer: bool,
                 texels: str = "fused", taps: int = 1, attrs: bool = False):
     """The per-pixel inputs the kernel reads once (tri, and the sx/sy
@@ -222,6 +264,30 @@ def shade_bound(tri, sx, sy, table, max_anisotropy: float, num_lights: int, laye
     ops = int(covered.sum()) * ((0 if attrs else SHADE_OPS_PLANES) + SHADE_OPS_TAIL
                                 + per_tap * taps + SHADE_OPS_PER_LIGHT * num_lights)
     return bound(nbytes, ops)
+
+
+def frame_stages(scn) -> dict:
+    """A scene's frame up to the shade, stage by stage with the kernels, as
+    its path gives each stage its inputs: vp, mrowsT, lights, setup,
+    stream, table, and the shade's tri and frac (kernel_ab.py uses it too)."""
+    from vktf_tpu_torch.ops import pipeline, raster, setup_kernel, shade_table
+
+    rs, config = scn.render_scene, scn.config
+    vp = torch.as_tensor(np.asarray(scn.camera.view_projection_transform, np.float32),
+                         device=rs.tri_corner.device)
+    mrowsT, lights = pipeline.scene_update(rs, scn.meta)
+    setup = setup_kernel.setup_pack(rs.tri_corner, mrowsT, vp, config.width, config.height)
+    stream = raster.raster_stream(
+        setup["tri_data"], setup["bbox_rows"],
+        raster.stream_perm(setup["bbox_rows"], setup["valid"], chunk=config.pallas_chunk),
+        chunk=config.pallas_chunk)
+    ids, depth = raster.rasterize(*stream, config.padded_height, config.padded_width,
+                                  config.msaa_samples, scn.frame_program.layers)
+    table = shade_table.build_shade_table(setup["edge9"], rs.tri_corner, rs.tri_static_cols,
+                                          setup["anchor2"], mrowsT)
+    tri, frac = pipeline.pixel_winner(ids, depth)
+    return dict(vp=vp, mrowsT=mrowsT, lights=lights, setup=setup, stream=stream, table=table,
+                tri=tri, frac=frac)
 
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -425,6 +491,7 @@ def main() -> int:
         f"max |depth diff| {d_err:.3e} (tolerance: {RASTER_ID_MISMATCH} of samples, depth "
         f"bit-equal)")
     require(id_bad <= RASTER_ID_MISMATCH * ids.numel() and d_bad == 0, "raster")
+    log("raster staging, opaque:", json.dumps(staging_counts(stream, ph, pw)))
     record(raster.KERNEL, d_err, cuda_ms(lambda: raster.rasterize(*r_args), 10),
            cuda_ms(lambda: raster.rasterize_plain(*r_args), 2),
            raster_bound(stream, ph, pw, config.msaa_samples, 1))
@@ -500,6 +567,7 @@ def main() -> int:
         f"layer {cover}; id differs at {id_bad}, depth not bit-equal at {d_bad} of the rest, "
         f"max |depth diff| {d_err:.3e} (tolerance: ids exact, depth bit-equal)")
     require(id_bad == 0 and d_bad == 0, "K-layer raster")
+    log("raster staging, translucent:", json.dumps(staging_counts(stream_t, ph, pw)))
     del ids_tp, depth_tp
     record(raster.KERNEL_LAYERS, d_err, cuda_ms(lambda: raster.rasterize(*rl_args), 10),
            cuda_ms(lambda: raster.rasterize_plain(*rl_args), 1),
@@ -547,23 +615,10 @@ def main() -> int:
         path_launches.setdefault(kernel.name, launches_v[kernel.name])
         return still_v, launches_v
 
-    def frame_stages(scn):
-        """(tri, frac, table, lights) of a scene's frame, as the path gives
-        them to the shade."""
-        rs_s = scn.render_scene
-        mrowsT_s, lights_s = pipeline.scene_update(rs_s, scn.meta)
-        setup_s = setup_kernel.setup_pack(rs_s.tri_corner, mrowsT_s, vp, width, height)
-        stream_s = raster.raster_stream(
-            setup_s["tri_data"], setup_s["bbox_rows"],
-            raster.stream_perm(setup_s["bbox_rows"], setup_s["valid"], chunk=config.pallas_chunk),
-            chunk=config.pallas_chunk)
-        ids_s, depth_s = raster.rasterize(*stream_s, ph, pw, config.msaa_samples,
-                                          scn.frame_program.layers)
-        table_s = shade_table.build_shade_table(setup_s["edge9"], rs_s.tri_corner,
-                                                rs_s.tri_static_cols, setup_s["anchor2"],
-                                                mrowsT_s)
-        tri_s, frac_s = pipeline.pixel_winner(ids_s, depth_s)
-        return tri_s, frac_s, table_s, lights_s
+    def shade_inputs(scn):
+        """(tri, frac, table, lights) of a scene's frame."""
+        st = frame_stages(scn)
+        return st["tri"], st["frac"], st["table"], st["lights"]
 
     def held_resolve(what, kernel, args, bound_args, texels="fused", taps=1, attrs=False):
         """A resolve-form kernel against its plain version, timed, recorded."""
@@ -635,7 +690,7 @@ def main() -> int:
     # in the texels a footprint takes across a texture's border
     log(f"[mirror] pixels differing from the repeat-wrap frame: "
         f"{int((still_m != still).any(axis=0).sum())} of {height * width}")
-    tri_m, frac_m, table_m, lights_m = frame_stages(scene_m)
+    tri_m, frac_m, table_m, lights_m = shade_inputs(scene_m)
     m_args = (tri_m, sx, sy, frac_m, table_m, scene_m.render_scene.quad_pool, cam, lights_m, bg,
               ma, "classic", 1)
     compare_packed("shade classic, mirror sponza", shade_kernel.shade_resolve(*m_args),
@@ -649,7 +704,7 @@ def main() -> int:
     still_x, _ = run_path(scene_x, "mixed", shade_kernel.KERNEL_PER_SLOT, ("per_slot", 1, False))
     log(f"[mixed] pixels differing from the one-sampler frame: "
         f"{int((still_x != still).any(axis=0).sum())} of {height * width}")
-    tri_x, frac_x, table_x, lights_x = frame_stages(scene_x)
+    tri_x, frac_x, table_x, lights_x = shade_inputs(scene_x)
     mixed_bound = (tri_x, sx, sy, table_x, ma, scene_x.meta.num_lights)
     held_resolve("shade per-slot, mixed sponza", shade_kernel.KERNEL_PER_SLOT,
                  (tri_x, sx, sy, frac_x, table_x, scene_x.render_scene.quad_pool, cam, lights_x,
@@ -676,7 +731,7 @@ def main() -> int:
     require(scene_xt.frame_program.layers == 8, "the translucent mixed sponza renders K = 8")
     run_path(scene_xt, "translucent_mixed", shade_kernel.KERNEL_LAYER_PER_SLOT,
              ("per_slot", 1, False))
-    tri_xt, _frac_xt, table_xt, lights_xt = frame_stages(scene_xt)
+    tri_xt, _frac_xt, table_xt, lights_xt = shade_inputs(scene_xt)
     held_layer("shade layer per-slot", shade_kernel.KERNEL_LAYER_PER_SLOT,
                (tri_xt, sx, sy, table_xt, scene_xt.render_scene.quad_pool, cam, lights_xt, ma,
                 "per_slot", 1), tri_xt,

@@ -12,7 +12,11 @@ layers), the hand-computed fill-rule geometry of test_torch_raster.py, a
 9-deep stack of equal-depth quads, and textured planes at 96x64 (mirror,
 clamp and mixed samplers over uvs in [-0.75, 1.75]; repeat and nearest
 over uvs far outside [0, 1] up to the mip chain's top) for every texel
-source, tap count and the attrs boundary. Tolerance: bit-equal (the
+source, tap count and the attrs boundary; a plane whose textures hold
+every byte value in every channel (the decode tables); streams whose
+chunks overlap a block with few touching triangles, chunks whose triangles
+all touch one block (full compacted lists), and a 300-deep equal-depth
+stack shuffled across chunks. Tolerance: bit-equal (the
 kernels run the plain versions' operations in the same order, with fused
 multiply-adds at the same places and the same CUDA math library).
 """
@@ -243,7 +247,7 @@ def _plane(device, which, msaa, layers):
     from vktf_tpu_torch.config import RenderConfig
     from vktf_tpu_torch.scene.scene import Scene
 
-    spec = _PLANES[which]
+    spec = tp.BYTE_PLANE if which == "bytes" else _PLANES[which]
     config = RenderConfig(width=96, height=64, msaa_samples=msaa, tile_shape=(32, 64),
                           peel_layers=layers)
     return Scene([tp.plane_asset(**spec, blend=layers > 1)], config,
@@ -327,3 +331,140 @@ def test_texture_kernels_raise_on_inputs_they_do_not_take(dev):
     with pytest.raises(ValueError):  # 32 padded rows, as the TPU kernel took them
         sk.shade_attrs_resolve(torch.cat([attrs, attrs[:4]]), r0, r1, st["tri"], st["frac"],
                                st["pool"], st["cam"], st["lights"], st["bg"])
+
+
+def _level0_texels_read(st):
+    """(16, 16) bool: the level-0 texels to which a covered entry's one-tap
+    sample gives a nonzero weight (the plain version's addressing; the byte
+    plane's three samplers are the same repeat-wrap bilinear one)."""
+    from vktf_tpu_torch.ops import shade_kernel as sk
+    from vktf_tpu_torch.ops.fmath import f32
+
+    tri = st["tri"].reshape(-1)
+    reps = tri.numel() // st["sx"].numel()
+    covered = tri >= 0
+    sx, sy = st["sx"].repeat(reps)[covered], st["sy"].repeat(reps)[covered]
+    rows = st["table"][tri[covered].long()]
+
+    def cf(v):
+        return f32(v, sx)
+
+    def col(c):
+        return rows[:, c]
+
+    tpm = sk._texture_params(cf, col, *sk._anchored(cf, col, sx, sy), 16.0, 0)
+    (_row, fx, fy, x0, y0), _ = sk.pool_window_addr(cf, tpm)
+    level0 = (tpm["l0"] == 0) & (tpm["lfrac"] < 1.0)
+    seen = torch.zeros((16, 16), dtype=torch.bool, device=tri.device)
+    for i, j, w in ((0, 0, (1 - fx) * (1 - fy)), (0, 1, fx * (1 - fy)), (1, 0, (1 - fx) * fy),
+                    (1, 1, fx * fy)):
+        keep = level0 & (w > 0)
+        seen[((y0 + i) % 16)[keep].long(), ((x0 + j) % 16)[keep].long()] = True
+    return seen
+
+
+@pytest.mark.parametrize("layers", [1, 4])
+def test_shade_decode_every_byte_value(dev, layers):
+    """Textures holding every byte value in every channel (the base colour
+    decoded as sRGB, the other two linear): the decode tables equal the
+    plain version's division and pow for each value, through every texel
+    source at one and four taps, resolve form (K = 1) and layer form. Each
+    channel of a 16x16 texture is a permutation of 0..255, and the frame's
+    level-0 footprints weight every texel above zero, so every byte value
+    of every channel and slot is decoded."""
+    from vktf_tpu_torch.ops import shade_kernel as sk
+
+    st = tp.port_stages(_plane(str(dev), "bytes", 4, layers))
+    tri = st["tri"]
+    assert bool(_level0_texels_read(st).all())
+    for texels in sk.TEXELS:
+        for taps in (1, 4):
+            if layers == 1:
+                args = (tri, st["sx"], st["sy"], st["frac"], st["table"], st["pool"], st["cam"],
+                        st["lights"], st["bg"], 16.0, texels, taps)
+                _assert_same(sk.shade_resolve(*args), sk.shade_resolve_plain(*args),
+                             f"{texels} x{taps}")
+            else:
+                args = (tri, st["sx"], st["sy"], st["table"], st["pool"], st["cam"],
+                        st["lights"], 16.0, texels, taps)
+                for got, want, what in zip(sk.shade_layer(*args), sk.shade_layer_plain(*args),
+                                           ("rgb", "alpha")):
+                    _assert_same(got, want, f"{texels} x{taps} {what}")
+
+
+def _raster_both(dev, tris, width, height, msaa, layers, z=0.5, perm=None):
+    """The kernel's and the plain version's (ids, depth) of pixel-space
+    triangles, streamed in `perm` order (stream_perm when None)."""
+    from vktf_tpu_torch.ops import raster
+
+    s = tp.setup_px(tris, width, height, z)
+    tri_data, bbox_rows, valid = (s[k].to(dev) for k in ("tri_data", "bbox_rows", "valid"))
+    if perm is None:
+        perm = raster.stream_perm(bbox_rows, valid)
+    stream = raster.raster_stream(tri_data, bbox_rows, torch.as_tensor(perm, device=dev))
+    got = raster.rasterize(*stream, height, width, msaa, layers)
+    want = raster.rasterize_plain(*stream, height, width, msaa, layers)
+    assert torch.equal(got[0], want[0])
+    tp.assert_bits_equal(got[1].cpu().numpy(), want[1].cpu().numpy(), "depth")
+    return stream, got, int(valid.sum())
+
+
+def _small_tri(cx, cy, r):
+    """A triangle of the fill-rule tests' winding around (cx, cy)."""
+    return [(cx - r, cy - r), (cx + r, cy + r), (cx + r, cy - r)]
+
+
+@pytest.mark.parametrize("layers", [1, 4])
+def test_raster_sparse_chunks_over_one_block(dev, layers):
+    """Eight chunks, each spanning the frame from its left to its right edge,
+    so every block hits all eight, while only one triangle of each touches
+    the middle blocks: most tested triangles are skipped before staging."""
+    rng = np.random.default_rng(5)
+    tris = []
+    for c in range(8):
+        for k in range(255):
+            x = 2.0 + 0.5 * rng.integers(0, 4) if k % 2 else 122.0 + 0.5 * rng.integers(0, 4)
+            tris.append(_small_tri(x, 2.0 + 0.5 * rng.integers(0, 120), 1.5))
+        tris.append(_small_tri(48.0 + 4 * c, 8.0 + 6 * c, 6.0))
+    stream, (ids, _depth), n_valid = _raster_both(dev, tris, 128, 64, 4, layers,
+                                                  perm=np.arange(len(tris)))
+    chunk_bbox = stream[2]
+    assert n_valid == len(tris)
+    assert bool(((chunk_bbox[0] < 48) & (chunk_bbox[2] > 80)).all())
+    middle = [256 * c + 255 for c in range(8)]
+    for m in middle:
+        assert bool((ids == m).any()), m
+
+
+@pytest.mark.parametrize("layers", [1, 8])
+@pytest.mark.parametrize("msaa", [1, 4])
+def test_raster_full_chunks_in_one_block(dev, msaa, layers):
+    """Two chunks whose 512 triangles all touch one 16x16 block at seeded
+    depths: the compacted list fills (256) and is evaluated before the
+    second chunk's triangles are listed."""
+    rng = np.random.default_rng(6)
+    tris, z = [], []
+    for _ in range(512):
+        cx, cy = 16.0 + 0.125 * rng.integers(24, 104, size=2)
+        tris.append(_small_tri(cx, cy, 0.125 * rng.integers(8, 40)))
+        z.append(rng.integers(1, 255) / 256.0)
+    stream, (ids, _depth), n_valid = _raster_both(dev, tris, 64, 48, msaa, layers, z=z)
+    assert n_valid == 512
+    first = ids if layers == 1 else ids[0]
+    assert float((first[:, 16:32, 16:32] >= 0).float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("msaa", [1, 4, 8])
+def test_raster_equal_depth_stack_across_chunks(dev, msaa):
+    """300 equal-depth quads over the whole frame, streamed in a seeded
+    shuffle across three chunks: at K = 8 every sample keeps the eight
+    lowest draw-order ids, whatever order the lists visit them in."""
+    rng = np.random.default_rng(7)
+    tris = []
+    for q in range(300):
+        tris += [[(0, 0), (64, 32), (64, 0)], [(0, 0), (0, 32), (64, 32)]]
+    t_pad = -(-len(tris) // 256) * 256
+    _stream, (ids, depth), _n = _raster_both(dev, tris, 64, 32, msaa, 8,
+                                             perm=rng.permutation(t_pad))
+    assert (ids[:, :, 10, 20] // 2 == torch.arange(8, device=dev)[:, None]).all()
+    assert bool((depth[:, :, 10, 20] == depth[0, 0, 10, 20]).all())

@@ -6,6 +6,9 @@ in the production stream order, and must agree on every sample's winning
 triangle id exactly and on its depth bit for bit wherever the ids agree
 (they all do).
 
+The CUDA kernel's staging counts (chip_smoke.staging_counts) against a
+block-by-block count.
+
 Against the hand: the Vulkan fill-rule cases of
 tests/test_raster_pallas.py (TestFillRulesHandComputed), with their
 expected coverage written out as literal arrays, on geometry whose screen
@@ -159,3 +162,37 @@ class TestFillRulesHandComputed:
         expected = np.zeros((4, 32, 128), bool)
         expected[1, 2, :] = True
         np.testing.assert_array_equal(ids >= 0, expected)
+
+
+def test_staging_counts_match_a_direct_count():
+    """chip_smoke.staging_counts (what the CUDA raster lists per 16x16
+    block) against a block-by-block count on a seeded stream of small and
+    block-spanning triangles."""
+    import chip_smoke
+    from vktf_tpu_torch.ops.raster import raster_stream, stream_perm
+
+    rng = np.random.default_rng(11)
+    tris = []
+    for _ in range(600):
+        x, y = 0.5 * rng.integers(2, 250, size=2)
+        r = 0.5 * rng.integers(1, 40)
+        tris.append([(x - r, y - r), (x + r, y + r), (x + r, y - r)])
+    s = tp.setup_px(tris, 128, 64)
+    stream = raster_stream(s["tri_data"], s["bbox_rows"],
+                           stream_perm(s["bbox_rows"], s["valid"]))
+    got = chip_smoke.staging_counts(stream, 64, 128)
+    tri_data, tri_bbox, chunk_bbox = stream
+    valid = tri_data[15] >= 0
+    hits, touches = [], []
+    for by in range(0, 64, 16):
+        for bx in range(0, 128, 16):
+            hits.append(int(((chunk_bbox[0] < bx + 16) & (chunk_bbox[1] < by + 16)
+                             & (chunk_bbox[2] > bx) & (chunk_bbox[3] > by)).sum()))
+            touches.append(int((valid & (tri_bbox[0] < bx + 16) & (tri_bbox[1] < by + 16)
+                                & (tri_bbox[2] > bx) & (tri_bbox[3] > by)).sum()))
+    assert sum(touches) > 0 and max(hits) > 1
+    assert got["block_chunk_hits"] == sum(hits)
+    assert got["hit_chunks_per_block_max"] == max(hits)
+    assert got["block_tri_touches"] == sum(touches)
+    assert got["touching_tris_per_block_max"] == max(touches)
+    assert got["staged_mb"] == round(sum(touches) * 96 / 1e6, 3)

@@ -220,17 +220,19 @@ def seeded_triangles(count: int = 1536, seed: int = 3):
 
 
 def setup_px(tris, width, height, z=0.5):
-    """Packed setup rows from PIXEL-space corners (w = 1, constant depth):
-    dyadic coordinates, exact through the clip -> screen round trip."""
+    """Packed setup rows from PIXEL-space corners (w = 1, constant depth per
+    triangle: z is one depth or one per triangle): dyadic coordinates, exact
+    through the clip -> screen round trip."""
     from vktf_tpu_torch.ops.setup_kernel import setup_pack
 
     t = len(tris)
+    zs = np.broadcast_to(np.asarray(z, np.float32), (t,))
     tri_corner = np.zeros((36, t), np.float32)
     for k, corners in enumerate(tris):
         for i, (px, py) in enumerate(corners):
             tri_corner[6 + 0 * 3 + i, k] = px / width * 2 - 1
             tri_corner[6 + 1 * 3 + i, k] = py / height * 2 - 1
-            tri_corner[6 + 2 * 3 + i, k] = z
+            tri_corner[6 + 2 * 3 + i, k] = zs[k]
     mrowsT = np.tile(np.eye(4, dtype=np.float32).reshape(16, 1), (1, t))
     return setup_pack(torch.from_numpy(tri_corner), torch.from_numpy(mrowsT),
                       torch.eye(4), width, height)
@@ -302,11 +304,29 @@ EDGE_PLANE = dict(
     camera=((0.0, 1.2, 6.0), (0.0, -0.18, -1.0)))
 
 
+def byte_rgba(size, seed: int) -> np.ndarray:
+    """(size, size, 4) u8 with size = 16: each channel a seeded permutation
+    of 0..255, so the texture holds every byte value in every channel."""
+    rng = np.random.default_rng(seed)
+    assert size * size == 256
+    return np.stack([rng.permutation(256).astype(np.uint8) for _ in range(4)],
+                    axis=1).reshape(size, size, 4)
+
+
+# a plane close to the camera, magnified, whose three textures hold every
+# byte value in every channel (the base colour in sRGB, the others linear)
+BYTE_PLANE = dict(
+    samplers=({},) * 3, uv_scale=1.0, uv_offset=0.0, plane_size=2.0,
+    translation=(0.0, 0.0, -1.0), tex_size=16, cells=(1, 1, 1),
+    camera=((0.0, 2.5, 1.6), (0.0, -0.96, -1.0)), images="bytes")
+
+
 def plane_asset(samplers, uv_scale, uv_offset, plane_size, translation, tex_size, cells,
-                camera=None, blend=False):
+                camera=None, blend=False, images=None):
     """A textured plane lit by one directional light, built with the port's
     dataclasses. samplers: three dicts of Sampler fields (base,
-    metallic-roughness, normal). blend: the material BLENDs at alpha 0.5 and
+    metallic-roughness, normal). images "bytes": byte_rgba textures in place of
+    the checkerboards. blend: the material BLENDs at alpha 0.5 and
     a smaller copy of the plane floats 0.3 above, so two layers cover the
     view's centre."""
     from vktf_tpu_torch.loaders.gltf import (
@@ -320,9 +340,12 @@ def plane_asset(samplers, uv_scale, uv_offset, plane_size, translation, tex_size
         return Texture(data=TextureData(levels=generate_mips(rgba, srgb), srgb=srgb),
                        sampler=Sampler(**fields))
 
-    base = checker_rgba(tex_size, (220, 40, 40, 255), (40, 40, 220, 255), cells[0])
-    mr = checker_rgba(tex_size, (40, 200, 120, 255), (200, 60, 60, 255), cells[1])
-    nrm = checker_rgba(tex_size, (128, 128, 255, 255), (180, 100, 230, 255), cells[2])
+    if images == "bytes":
+        base, mr, nrm = (byte_rgba(tex_size, seed) for seed in (1, 2, 3))
+    else:
+        base = checker_rgba(tex_size, (220, 40, 40, 255), (40, 40, 220, 255), cells[0])
+        mr = checker_rgba(tex_size, (40, 200, 120, 255), (200, 60, 60, 255), cells[1])
+        nrm = checker_rgba(tex_size, (128, 128, 255, 255), (180, 100, 230, 255), cells[2])
     material = Material(
         pbr_metallic_roughness=PbrMetallicRoughness(
             base_color_factor=np.asarray((1.0, 1.0, 1.0, 0.5 if blend else 1.0), np.float32),

@@ -7,25 +7,47 @@
 // `_attrs_resolve_kernel` and `_attrs_layer_kernel` (body
 // `_attrs_block_body`), all launched by `_shade_final_call`, and the XLA
 // form shade_table.shade_table_layer the JAX package runs for per-slot
-// samplers and for the taps of a two-gather scene. One thread per pixel
-// (per layer and pixel in the layer form). A fragment is
-//   * an input stage: the triangle's 256-byte shade-table row evaluated at
-//     the pixel centre (ColsShade), or phase A's 28 attribute floats
-//     (AttrsShade);
+// samplers and for the taps of a two-gather scene. A fragment is
+//   * an input stage: the triangle's shade-table row (ColsShade), read with
+//     16-byte loads in two parts (what the sampler needs, then after the
+//     texture fetches what the tail needs) and evaluated at the pixel
+//     centre, or phase A's 28 attribute floats (AttrsShade, rows strided by
+//     N: coalesced);
+//   * the sampler state, computed once per fragment: the mip pair's level
+//     geometry (common to the three slots) and each slot's filter and wrap;
 //   * a texel source, the template parameter kSource: one fused-mip pool
 //     row (slot A for l0, slot B for l1), the classic l0 and l1 rows, or
-//     that pair per texture slot; with kMultiTap the source runs once per
-//     tap at the tap-shifted uv (a runtime count; 1/N is exact for 2, 4, 8)
-//     and the samples are averaged;
+//     that pair per texture slot, addressed once per (slot, level) and tap,
+//     one slot at a time; with kMultiTap the source runs once per tap at
+//     the tap-shifted uv (a runtime count; 1/N is exact for 2, 4, 8) and
+//     the samples are averaged;
+//   * texel decode by lookup: two 256-entry tables in shared memory, u8/255
+//     and its sRGB-to-linear value, filled per block with the very
+//     expressions the inline decode used, so the lookup is bit-equal to it;
 //   * the tail: TBN normal mapping, the BRDF over the lights, alpha mode;
 // then either the resolved, sRGB-encoded pixel as r | g<<8 | b<<16
-// (resolve form) or its linear radiance and alpha (layer form). The row
-// gathers happen here, so no per-pixel phase-boundary tensor exists.
+// (resolve form) or its linear radiance and alpha (layer form; an
+// uncovered entry is written as zeros). One thread per pixel in both
+// forms: in the layer form it walks the pixel's K layers, so a block's
+// warps stay busy wherever any of their pixels has a covered layer.
+//
+// Bound on the card: float32 work per covered entry (the BRDF over the
+// lights, the addressing and filtering of 24 texels per tap) behind a chain
+// of dependent gathers (tri -> table row -> pool rows -> texels) that L2
+// mostly serves. No matrix product occurs, so wgmma does not apply; the
+// design cuts instructions (decode tables, addressing once) and registers
+// (the row's tail columns read after sampling, one slot's state at a time),
+// and ptxas keeps every instantiation at 56-104 registers with no spill.
+// The alternatives measured against these choices (decode tables in global
+// memory, 4-byte row loads, a thread per (layer, pixel), other block sizes
+// and launch bounds) are recorded in PERF.md.
 #include "common.cuh"
 
 namespace {
 
+constexpr int kThreads = 128;  // ptxas chooses the registers
 constexpr int kRow = 64;
+constexpr int kRowUsed = 56;  // columns 0..55 of a table row are read
 constexpr int kSlotU32 = 27;
 constexpr float kPi = 3.1415927f;
 constexpr float kEpsilon = 1.0e-7f;
@@ -67,10 +89,47 @@ __device__ __forceinline__ int wrap_coord(int i, int size, int mode) {
   return mode == 0 ? repeat : (mode == 1 ? clamp : mirror);
 }
 
-struct TexParams {
-  float u, v, lfrac;
-  int l0, l1, base_row, w0, max_level, wrap_u, wrap_v;
+// ---- texel decode -----------------------------------------------------------
+
+// dec[b] = b / 255 and dec[256 + b] = its sRGB-to-linear value: the inline
+// decode's own expressions, evaluated once per table entry. Every thread of
+// the block calls this before any early return.
+__device__ __forceinline__ const float* decode_table(float* dec) {
+  for (int b = threadIdx.x; b < 256; b += blockDim.x) {
+    const float v = (float)(uint32_t)b / 255.0f;
+    dec[b] = v;
+    dec[256 + b] = srgb_to_linear(v);
+  }
+  __syncthreads();
+  return dec;
+}
+
+// ---- sampler state and addressing -------------------------------------------
+
+// One mip level's geometry, common to the three slots (one chain per
+// material): its width and the pool row of block (0, 0).
+struct LevelGeom {
+  int wl, bw, row0;
+  float wlf;
+};
+
+__device__ __forceinline__ LevelGeom level_geom(int w0, int base_row, int max_level, int level) {
+  LevelGeom g;
+  g.wl = max(w0 >> level, 1);
+  g.wlf = (float)g.wl;
+  const int b0 = max(w0 >> 1, 1);
+  const int bl = max(b0 >> level, 1);
+  const int extra = (level == max_level && max_level > 0) ? 1 : 0;
+  g.row0 = base_row + 4 * (b0 * b0 - bl * bl) / 3 + extra;
+  g.bw = max(w0 >> (level + 1), 1);
+  return g;
+}
+
+// One slot's filter state: its lerp weight, nearest flag and wrap modes.
+struct SlotSampler {
+  float lfrac;
   bool nearest;
+  int wrap_u, wrap_v;
 };
 
 struct LevelAddr {
@@ -78,28 +137,24 @@ struct LevelAddr {
   float fx, fy;
 };
 
-__device__ __forceinline__ LevelAddr level_addr(const TexParams& tp, int level) {
-  const int wl = max(tp.w0 >> level, 1);
-  const float wlf = (float)wl;
-  const float x = fma_rn(tp.u, wlf, -0.5f);
-  const float y = fma_rn(tp.v, wlf, -0.5f);
+// The footprint corner's block row and the bilinear fractions of one
+// (slot, level) at (u, v).
+__device__ __forceinline__ LevelAddr level_addr(const LevelGeom& g, const SlotSampler& sp,
+                                                float u, float v) {
+  const float x = fma_rn(u, g.wlf, -0.5f);
+  const float y = fma_rn(v, g.wlf, -0.5f);
   const float x0f = floorf(x), y0f = floorf(y);
   float fx = x - x0f, fy = y - y0f;
-  if (tp.nearest) {
+  if (sp.nearest) {
     fx = fx >= 0.5f ? 1.0f : 0.0f;
     fy = fy >= 0.5f ? 1.0f : 0.0f;
   }
   LevelAddr a;
-  a.x0 = wrap_coord((int)x0f, wl, tp.wrap_u);
-  a.y0 = wrap_coord((int)y0f, wl, tp.wrap_v);
+  a.x0 = wrap_coord((int)x0f, g.wl, sp.wrap_u);
+  a.y0 = wrap_coord((int)y0f, g.wl, sp.wrap_v);
   a.fx = fx;
   a.fy = fy;
-  const int b0 = max(tp.w0 >> 1, 1);
-  const int bl = max(b0 >> level, 1);
-  const int extra = (level == tp.max_level && tp.max_level > 0) ? 1 : 0;
-  const int offset = 4 * (b0 * b0 - bl * bl) / 3 + extra;
-  const int bw = max(tp.w0 >> (level + 1), 1);
-  a.row = tp.base_row + offset + (a.y0 >> 1) * bw + (a.x0 >> 1);
+  a.row = g.row0 + (a.y0 >> 1) * g.bw + (a.x0 >> 1);
   return a;
 }
 
@@ -118,7 +173,7 @@ struct Texels {  // the 2x2 window of one level: base + lane offset per tap
 };
 
 __device__ __forceinline__ void filter_slot(const Texels& tx, int slot, float fx, float fy,
-                                            bool srgb, float out[4]) {
+                                            bool srgb, const float* dec, float out[4]) {
   const float w00 = (1.0f - fx) * (1.0f - fy);
   const float w10 = fx * (1.0f - fy);
   const float w01 = (1.0f - fx) * fy;
@@ -127,12 +182,10 @@ __device__ __forceinline__ void filter_slot(const Texels& tx, int slot, float fx
                             tx.at(slot, 1, 1)};
 #pragma unroll
   for (int ch = 0; ch < 4; ++ch) {
+    const float* table = dec + ((srgb && ch < 3) ? 256 : 0);
     float v[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      v[q] = (float)((taps[q] >> (8 * ch)) & 0xFFu) / 255.0f;
-      if (srgb && ch < 3) v[q] = srgb_to_linear(v[q]);
-    }
+    for (int q = 0; q < 4; ++q) v[q] = table[(taps[q] >> (8 * ch)) & 0xFFu];
     out[ch] = fma_rn(v[3], w11, fma_rn(v[2], w01, fma_rn(v[0], w00, v[1] * w10)));
   }
 }
@@ -140,10 +193,10 @@ __device__ __forceinline__ void filter_slot(const Texels& tx, int slot, float fx
 // One texture's trilinear sample from its l0 and l1 windows.
 __device__ __forceinline__ void trilinear(const Texels& t0, const Texels& t1, int slot,
                                           float fx0, float fy0, float fx1, float fy1,
-                                          float lfrac, float out[4]) {
+                                          float lfrac, const float* dec, float out[4]) {
   float s0[4], s1[4];
-  filter_slot(t0, slot, fx0, fy0, slot == 0, s0);
-  filter_slot(t1, slot, fx1, fy1, slot == 0, s1);
+  filter_slot(t0, slot, fx0, fy0, slot == 0, dec, s0);
+  filter_slot(t1, slot, fx1, fy1, slot == 0, dec, s1);
 #pragma unroll
   for (int ch = 0; ch < 4; ++ch) out[ch] = fma_rn(s0[ch], 1.0f - lfrac, s1[ch] * lfrac);
 }
@@ -238,23 +291,32 @@ __device__ __forceinline__ void shade_tail(const float slot_tex[3][4], const Sur
 
 // ---- the table-row input stage -------------------------------------------
 
-// A triangle's row evaluated at the pixel: anchored, perspective-correct.
+// Columns 4i..4i+3 of a triangle's row: one 16-byte load (rows are 256
+// bytes and the wrapper checks the table's 16-byte alignment).
+__device__ __forceinline__ void load_cols(const float* __restrict__ row, int i,
+                                          float c[kRowUsed]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(row) + i);
+  c[4 * i] = q.x;
+  c[4 * i + 1] = q.y;
+  c[4 * i + 2] = q.z;
+  c[4 * i + 3] = q.w;
+}
+
+// The row's planes evaluated at the pixel: anchored, perspective-correct.
 struct RowFrag {
-  const float* row;
+  const float* c;
   float sxa, sya, inv_w;
-  __device__ __forceinline__ float col(int c) const { return __ldg(row + c); }
   __device__ __forceinline__ float attr(int c0) const {
-    return (fma_rn(col(c0), sxa, col(c0 + 1) * sya) + col(c0 + 2)) * inv_w;
+    return (fma_rn(c[c0], sxa, c[c0 + 1] * sya) + c[c0 + 2]) * inv_w;
   }
 };
 
-__device__ __forceinline__ RowFrag row_frag(const float* __restrict__ table, int t, float sx,
-                                            float sy) {
+__device__ __forceinline__ RowFrag row_frag(const float* c, float sx, float sy) {
   RowFrag f;
-  f.row = table + (size_t)t * kRow;
-  f.sxa = sx - f.col(C_AX);
-  f.sya = sy - f.col(C_AY);
-  const float w = fma_rn(f.col(0), f.sxa, f.col(1) * f.sya) + f.col(2);
+  f.c = c;
+  f.sxa = sx - c[C_AX];
+  f.sya = sy - c[C_AY];
+  const float w = fma_rn(c[0], f.sxa, c[1] * f.sya) + c[2];
   f.inv_w = 1.0f / (fabsf(w) < 1e-30f ? 1e-30f : w);
   return f;
 }
@@ -269,15 +331,16 @@ struct Footprint {
 template <bool kMultiTap>
 __device__ __forceinline__ Footprint footprint(const RowFrag& f, float max_anisotropy,
                                                float max_anisotropy2) {
+  const float* c = f.c;
   Footprint fp;
   fp.u = f.attr(C_UV);
   fp.v = f.attr(C_UV + 3);
-  const float du_dx = fma_rn(-fp.u, f.col(0), f.col(C_UV)) * f.inv_w;
-  const float du_dy = fma_rn(-fp.u, f.col(1), f.col(C_UV + 1)) * f.inv_w;
-  const float dv_dx = fma_rn(-fp.v, f.col(0), f.col(C_UV + 3)) * f.inv_w;
-  const float dv_dy = fma_rn(-fp.v, f.col(1), f.col(C_UV + 4)) * f.inv_w;
-  const float w0f = f.col(C_MW0);
-  fp.max_level = f.col(C_MLEVELS) - 1.0f;
+  const float du_dx = fma_rn(-fp.u, c[0], c[C_UV]) * f.inv_w;
+  const float du_dy = fma_rn(-fp.u, c[1], c[C_UV + 1]) * f.inv_w;
+  const float dv_dx = fma_rn(-fp.v, c[0], c[C_UV + 3]) * f.inv_w;
+  const float dv_dy = fma_rn(-fp.v, c[1], c[C_UV + 4]) * f.inv_w;
+  const float w0f = c[C_MW0];
+  fp.max_level = c[C_MLEVELS] - 1.0f;
   const float pxd = du_dx * w0f, qxd = dv_dx * w0f;
   const float pyd = du_dy * w0f, qyd = dv_dy * w0f;
   const float ddx2 = fma_rn(pxd, pxd, qxd * qxd);
@@ -305,79 +368,72 @@ __device__ __forceinline__ Footprint footprint(const RowFrag& f, float max_aniso
   return fp;
 }
 
-// Each slot's sampler parameters at the sample position (u, v).
-__device__ __forceinline__ void tex_params(const Footprint& fp, const RowFrag& f, float u,
-                                           float v, TexParams tp[3]) {
+// The tap-invariant sampler state of a fragment: both levels' geometry and
+// each slot's filter and wrap.
+struct Sampler {
+  LevelGeom g0, g1;
+  bool same_level;  // l1 == l0: the chain top
+  SlotSampler slot[3];
+};
+
+__device__ __forceinline__ Sampler sampler_state(const Footprint& fp, const float* c) {
+  Sampler s;
+  const int base_row = (int)c[C_MROW];
+  const int w0 = (int)c[C_MW0];
+  const int max_level = (int)fp.max_level;
+  const int l0 = (int)fp.level0;
+  const int l1 = min(l0 + 1, max_level);
+  s.g0 = level_geom(w0, base_row, max_level, l0);
+  s.g1 = level_geom(w0, base_row, max_level, l1);
+  s.same_level = l1 == l0;
+  const float lfrac = fp.lod - fp.level0;
+  const bool is_mag = fp.lod <= 0.0f;
 #pragma unroll
   for (int slot = 0; slot < 3; ++slot) {
-    TexParams& q = tp[slot];
-    q.u = u;
-    q.v = v;
-    q.base_row = (int)f.col(C_MROW);
-    q.w0 = (int)f.col(C_MW0);
-    q.max_level = (int)fp.max_level;
-    const int code = (int)f.col(C_SAMP0 + slot);
-    const float lfrac = fp.lod - fp.level0;
+    const int code = (int)c[C_SAMP0 + slot];
+    SlotSampler& q = s.slot[slot];
     q.lfrac = (code & 64) ? (lfrac >= 0.5f ? 1.0f : 0.0f) : lfrac;
-    const bool is_mag = fp.lod <= 0.0f;
     q.nearest = (is_mag && (code & 16)) || (!is_mag && (code & 32));
-    q.l0 = (int)fp.level0;
-    q.l1 = min(q.l0 + 1, (int)fp.max_level);
     q.wrap_u = code & 3;
     q.wrap_v = (code >> 2) & 3;
   }
+  return s;
 }
 
 // ---- texel sources ----------------------------------------------------------
 
-// The classic pair of one sampler: the l0 row and the l1 row, slot A, each
-// with its own fold case.
-__device__ __forceinline__ void classic_pair(const TexParams& tp, const uint32_t* pool,
-                                             int pool_rows, Texels& t0, Texels& t1) {
-  const LevelAddr a0 = level_addr(tp, tp.l0);
-  const LevelAddr a1 = level_addr(tp, tp.l1);
-  t0 = Texels{pool_row(pool, a0.row, pool_rows), 0, a0.x0 & 1, a0.y0 & 1};
-  t1 = Texels{pool_row(pool, a1.row, pool_rows), 0, a1.x0 & 1, a1.y0 & 1};
-}
-
 // The three slots' trilinear samples at one (possibly tap-shifted)
-// position, from the texel source kSource.
+// position (u, v), from the texel source kSource, one slot at a time so
+// only that slot's addresses and windows are live. Each (slot, level) is
+// addressed once; the fused and classic sources read their rows at slot
+// 0's address, the per-slot source each slot's own.
 template <int kSource>
-__device__ __forceinline__ void sample_slots(const TexParams tp[3], const uint32_t* pool,
-                                             int pool_rows, float out[3][4]) {
-  Texels t0[3], t1[3];
+__device__ __forceinline__ void sample_slots(const Sampler& sm, float u, float v,
+                                             const uint32_t* pool, int pool_rows,
+                                             const float* dec, float out[3][4]) {
+  const LevelAddr b0 = level_addr(sm.g0, sm.slot[0], u, v);
+  const LevelAddr b1 = level_addr(sm.g1, sm.slot[0], u, v);
+  Texels t0, t1;
   if (kSource == kFused) {
     // one row serves both levels: slot A for l0, slot B (l1, anchored at
     // the l0 block minus one) for l1, slot A again at the chain top
-    const LevelAddr a0 = level_addr(tp[0], tp[0].l0);
-    const LevelAddr a1 = level_addr(tp[0], tp[0].l1);
-    const uint32_t* prow = pool_row(pool, a0.row, pool_rows);
-    const Texels tex0{prow, 0, a0.x0 & 1, a0.y0 & 1};
-    const Texels tex_b{prow, kSlotU32, a1.x0 == (a0.x0 >> 1) ? 1 : 0,
-                       a1.y0 == (a0.y0 >> 1) ? 1 : 0};
-    const Texels tex1 = tp[0].l1 == tp[0].l0 ? tex0 : tex_b;
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      t0[s] = tex0;
-      t1[s] = tex1;
-    }
-  } else if (kSource == kClassic) {
-    Texels tex0, tex1;
-    classic_pair(tp[0], pool, pool_rows, tex0, tex1);
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      t0[s] = tex0;
-      t1[s] = tex1;
-    }
-  } else {  // kPerSlot: each texture's rows at its own wrap
-#pragma unroll
-    for (int s = 0; s < 3; ++s) classic_pair(tp[s], pool, pool_rows, t0[s], t1[s]);
+    const uint32_t* prow = pool_row(pool, b0.row, pool_rows);
+    t0 = Texels{prow, 0, b0.x0 & 1, b0.y0 & 1};
+    t1 = sm.same_level ? t0
+                       : Texels{prow, kSlotU32, b1.x0 == (b0.x0 >> 1) ? 1 : 0,
+                                b1.y0 == (b0.y0 >> 1) ? 1 : 0};
   }
 #pragma unroll
   for (int slot = 0; slot < 3; ++slot) {
-    const LevelAddr s0 = level_addr(tp[slot], tp[slot].l0);
-    const LevelAddr s1 = level_addr(tp[slot], tp[slot].l1);
-    trilinear(t0[slot], t1[slot], slot, s0.fx, s0.fy, s1.fx, s1.fy, tp[slot].lfrac, out[slot]);
+    const LevelAddr a0 = slot == 0 ? b0 : level_addr(sm.g0, sm.slot[slot], u, v);
+    const LevelAddr a1 = slot == 0 ? b1 : level_addr(sm.g1, sm.slot[slot], u, v);
+    // classic: the l0 row and the l1 row of slot 0's sampler, each in slot
+    // A with its own fold case; per-slot: that pair at each slot's wrap
+    if (kSource == kPerSlot || (kSource == kClassic && slot == 0)) {
+      t0 = Texels{pool_row(pool, a0.row, pool_rows), 0, a0.x0 & 1, a0.y0 & 1};
+      t1 = Texels{pool_row(pool, a1.row, pool_rows), 0, a1.x0 & 1, a1.y0 & 1};
+    }
+    trilinear(t0, t1, slot, a0.fx, a0.fy, a1.fx, a1.fy, sm.slot[slot].lfrac, dec, out[slot]);
   }
 }
 
@@ -398,45 +454,56 @@ struct ColsArgs {
 template <int kSource, bool kMultiTap>
 struct ColsShade {
   ColsArgs a;
-  __device__ __forceinline__ void operator()(int t, int /*layer*/, size_t p, float radiance[3],
-                                             float* alpha) const {
-    const RowFrag f = row_frag(a.table, t, a.sx[p], a.sy[p]);
+  __device__ __forceinline__ void operator()(int t, int /*layer*/, size_t p, const float* dec,
+                                             float radiance[3], float* alpha) const {
+    // the row in two reads: what sampling needs (columns 0..11, 44..55),
+    // then after sampling what the tail needs (12..43), so the tail's
+    // columns do not hold registers across the texture fetches
+    const float* row = a.table + (size_t)t * kRow;
+    float c[kRowUsed];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) load_cols(row, i, c);
+#pragma unroll
+    for (int i = 11; i < kRowUsed / 4; ++i) load_cols(row, i, c);
+    const RowFrag f = row_frag(c, a.sx[p], a.sy[p]);
     const Footprint fp = footprint<kMultiTap>(f, a.max_anisotropy, a.max_anisotropy2);
+    const Sampler sm = sampler_state(fp, c);
     float slot_tex[3][4];
-    TexParams tp[3];
     if (!kMultiTap) {
-      tex_params(fp, f, fp.u, fp.v, tp);
-      sample_slots<kSource>(tp, a.pool, a.pool_rows, slot_tex);
+      sample_slots<kSource>(sm, fp.u, fp.v, a.pool, a.pool_rows, dec, slot_tex);
     } else {
       for (int i = 0; i < a.taps; ++i) {
         const float step = ((i + 0.5f) / a.taps - 0.5f) * fp.scale;
-        tex_params(fp, f, fma_rn(step, fp.adu, fp.u), fma_rn(step, fp.adv, fp.v), tp);
         float st[3][4];
-        sample_slots<kSource>(tp, a.pool, a.pool_rows, st);
+        sample_slots<kSource>(sm, fma_rn(step, fp.adu, fp.u), fma_rn(step, fp.adv, fp.v),
+                              a.pool, a.pool_rows, dec, st);
 #pragma unroll
-        for (int s = 0; s < 3; ++s)
+        for (int k = 0; k < 3; ++k)
 #pragma unroll
-          for (int ch = 0; ch < 4; ++ch) slot_tex[s][ch] = i == 0 ? st[s][ch] : slot_tex[s][ch] + st[s][ch];
+          for (int ch = 0; ch < 4; ++ch)
+            slot_tex[k][ch] = i == 0 ? st[k][ch] : slot_tex[k][ch] + st[k][ch];
       }
       const float inv = 1.0f / a.taps;
 #pragma unroll
-      for (int s = 0; s < 3; ++s)
+      for (int k = 0; k < 3; ++k)
 #pragma unroll
-        for (int ch = 0; ch < 4; ++ch) slot_tex[s][ch] *= inv;
+        for (int ch = 0; ch < 4; ++ch) slot_tex[k][ch] *= inv;
     }
+#pragma unroll
+    for (int i = 3; i < 11; ++i) load_cols(row, i, c);
     SurfaceInputs s;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s.base_f[c] = f.col(C_BASE + c);
-    s.mr_f[0] = f.col(C_MR);
-    s.mr_f[1] = f.col(C_MR + 1);
-    s.normal_scale = f.col(C_NSCALE);
-    s.amode = f.col(C_AMODE);
-    s.acut = f.col(C_ACUT);
+    for (int k = 0; k < 4; ++k) s.base_f[k] = c[C_BASE + k];
+    s.mr_f[0] = c[C_MR];
+    s.mr_f[1] = c[C_MR + 1];
+    s.normal_scale = c[C_NSCALE];
+    s.amode = c[C_AMODE];
+    s.acut = c[C_ACUT];
     s.wp = V3{f.attr(C_WPOS), f.attr(C_WPOS + 3), f.attr(C_WPOS + 6)};
 #pragma unroll
-    for (int c = 0; c < 3; ++c) s.nr[c] = f.attr(C_NRM + 3 * c);
+    for (int k = 0; k < 3; ++k) s.nr[k] = f.attr(C_NRM + 3 * k);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s.tg[c] = f.attr(C_TAN + 3 * c);
+    for (int k = 0; k < 4; ++k) s.tg[k] = f.attr(C_TAN + 3 * k);
     shade_tail(slot_tex, s, a.params, a.num_lights, radiance, alpha);
   }
 };
@@ -450,8 +517,8 @@ struct AttrsShade {
   const uint32_t* pool;
   const float* params;
   int num_lights, pool_rows, n;
-  __device__ __forceinline__ void operator()(int /*t*/, int layer, size_t p, float radiance[3],
-                                             float* alpha) const {
+  __device__ __forceinline__ void operator()(int /*t*/, int layer, size_t p, const float* dec,
+                                             float radiance[3], float* alpha) const {
     const float* a = attrs + (size_t)layer * kAttrRows * n + p;
     auto row = [&](int i) { return __ldg(a + (size_t)i * n); };
     const size_t q = (size_t)layer * n + p;
@@ -464,7 +531,7 @@ struct AttrsShade {
     float slot_tex[3][4];
 #pragma unroll
     for (int slot = 0; slot < 3; ++slot)
-      trilinear(t0, t1, slot, fx0, fy0, fx1, fy1, lfrac, slot_tex[slot]);
+      trilinear(t0, t1, slot, fx0, fy0, fx1, fy1, lfrac, dec, slot_tex[slot]);
     SurfaceInputs s;
 #pragma unroll
     for (int c = 0; c < 4; ++c) s.base_f[c] = row(A_BASE + c);
@@ -495,14 +562,16 @@ __device__ __forceinline__ int srgb_u8(float v) {
 // resolve, sRGB encode, packed r | g << 8 | b << 16. An uncovered pixel
 // composites nothing (rgb 0, alpha 0) and is not shaded.
 template <class Shade>
-__global__ void resolve_kernel(Shade shade, const int* __restrict__ tri,
-                               const float* __restrict__ frac_in, const float* __restrict__ params,
-                               int* __restrict__ out, int n) {
+__global__ void __launch_bounds__(kThreads)
+    resolve_kernel(Shade shade, const int* __restrict__ tri, const float* __restrict__ frac_in,
+                   const float* __restrict__ params, int* __restrict__ out, int n) {
+  __shared__ float dec_smem[512];
+  const float* dec = decode_table(dec_smem);
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
   const int t = tri[p];
   float radiance[3] = {0.0f, 0.0f, 0.0f}, alpha = 0.0f;
-  if (t >= 0) shade(t, 0, p, radiance, &alpha);
+  if (t >= 0) shade(t, 0, p, dec, radiance, &alpha);
   const float frac = frac_in[p];
   int packed = 0;
 #pragma unroll
@@ -515,25 +584,28 @@ __global__ void resolve_kernel(Shade shade, const int* __restrict__ tri,
   out[p] = packed;
 }
 
-// Layer form: every (layer, pixel) of a (K, N) id array, one thread each;
-// linear radiance (K, 3, N) and effective alpha (K, N) for the host-side
-// composite. An uncovered entry writes zeros and returns.
+// Layer form: linear radiance (K, 3, N) and effective alpha (K, N) of a
+// (K, N) id array, for the host-side composite; an uncovered entry is
+// rgb 0, alpha 0.
 template <class Shade>
-__global__ void layer_kernel(Shade shade, const int* __restrict__ tri, float* __restrict__ out_rgb,
-                             float* __restrict__ out_alpha, int n, int layers) {
-  const size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= (size_t)n * layers) return;
-  const size_t l = q / n;
-  const size_t p = q - l * n;
-  const int t = tri[q];
-  float radiance[3] = {0.0f, 0.0f, 0.0f}, alpha = 0.0f;
-  if (t >= 0) shade(t, (int)l, p, radiance, &alpha);
+__global__ void __launch_bounds__(kThreads)
+    layer_kernel(Shade shade, const int* __restrict__ tri, float* __restrict__ out_rgb,
+                 float* __restrict__ out_alpha, int n, int layers) {
+  __shared__ float dec_smem[512];
+  const float* dec = decode_table(dec_smem);
+  // a thread per pixel, walking its layers
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  for (int l = 0; l < layers; ++l) {
+    const size_t q = (size_t)l * n + p;
+    const int t = tri[q];
+    float radiance[3] = {0.0f, 0.0f, 0.0f}, alpha = 0.0f;
+    if (t >= 0) shade(t, l, p, dec, radiance, &alpha);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) out_rgb[(l * 3 + c) * n + p] = radiance[c];
-  out_alpha[q] = alpha;
+    for (int c = 0; c < 3; ++c) out_rgb[((size_t)l * 3 + c) * n + p] = radiance[c];
+    out_alpha[q] = alpha;
+  }
 }
-
-constexpr int kThreads = 128;
 
 template <class Shade>
 int launch_resolve(const Shade& shade, const int* tri, const float* frac, const float* params,
@@ -546,8 +618,7 @@ int launch_resolve(const Shade& shade, const int* tri, const float* frac, const 
 template <class Shade>
 int launch_layer(const Shade& shade, const int* tri, float* out_rgb, float* out_alpha, int n,
                  int layers, cudaStream_t stream) {
-  const long long total = (long long)n * layers;
-  layer_kernel<Shade><<<(int)((total + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+  layer_kernel<Shade><<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       shade, tri, out_rgb, out_alpha, n, layers);
   return launch_status();
 }

@@ -56,30 +56,33 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(source: str) -> Path:
-    src = (CSRC / source).read_bytes()
-    common = (CSRC / "common.cuh").read_bytes()
-    digest = hashlib.sha1(src + common + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+def _lib_path(source: str, csrc: Path = CSRC) -> Path:
+    """The library's path, named by a hash of its source, every header in
+    its directory and the flags, so an edited header rebuilds its libraries
+    too, and another directory's sources get libraries of their own."""
+    parts = [(csrc / source).read_bytes()]
+    parts += [h.read_bytes() for h in sorted(csrc.glob("*.cuh"))]
+    digest = hashlib.sha1(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 
 
-def build(sources) -> dict[str, float]:
-    """Compile the given sources in parallel; returns seconds per source
-    (0.0 when an up-to-date library already existed). Raises on failure."""
+def build(sources, csrc: Path = CSRC) -> dict[str, float]:
+    """Compile the given sources of ``csrc`` (the package's own by default)
+    in parallel; returns seconds per source (0.0 when an up-to-date library
+    already existed). Raises on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     times = {}
     t0 = time.perf_counter()
     for source in sources:
-        out = _lib_path(source)
+        out = _lib_path(source, csrc)
         if out.exists():
             times[source] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = out.with_suffix(".log")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / source)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-o", str(tmp), str(csrc / source)]
         procs[source] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT),
                          tmp, out, log)
@@ -104,13 +107,17 @@ def build_log(source: str) -> str:
     return log.read_text(errors="replace") if log.exists() else ""
 
 
+def load(source: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """Load the library of one source of ``csrc``, building it first if needed."""
+    build([source], csrc)
+    return ctypes.CDLL(str(_lib_path(source, csrc)))
+
+
 def library(source: str) -> ctypes.CDLL:
-    """The loaded library of one source, building it first if needed."""
+    """The package's loaded library of one source, the kernels' wrappers use."""
     lib = _libs.get(source)
     if lib is None:
-        build([source])
-        lib = ctypes.CDLL(str(_lib_path(source)))
-        _libs[source] = lib
+        lib = _libs[source] = load(source)
     return lib
 
 
@@ -142,3 +149,9 @@ def require(t, name: str, dtype, shape=None, device=None) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_aligned(t, name: str, nbytes: int = 16) -> None:
+    """Kernels that read an operand in 16-byte pieces need its start aligned."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name} must start on a {nbytes}-byte boundary")

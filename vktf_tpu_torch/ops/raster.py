@@ -29,24 +29,25 @@ CUDA design (``csrc/raster.cu``): one 256-thread block per 16x16-pixel
 block, one thread per pixel holding its S samples' K sorted (depth, id)
 slots in registers — one owner per sample, so no atomics and nothing can
 race (the TPU kernel's overlapping accumulator windows raced on hardware,
-raster_pallas.py:413-418). The block tests all chunk bboxes, 256 at a time
-(one per thread), stages each hit chunk's 32 rows (32 KB) in shared
-memory, skips groups and then triangles whose bbox misses the block, and
-each thread tests its pixel against the triangle's bbox before evaluating
-its samples; a passing fragment nearer than the last slot is inserted by
-the fully unrolled bubble-down of raster_pallas.py:831-852. The kernel is
-templated on (S, K) with K rounded up to 1, 2, 4 or 8. ptxas (sm_90a)
-reports no spill for any (S, K): 48 registers at S = 4, K = 1, 128 at
-S = 4, K = 8, 222 at S = 8, K = 8, so the accumulators stay in registers
-and no shared-memory variant exists. Bound on the card: the chunk staging
-through L2 and the per-(pixel, triangle) evaluations of triangles whose
-bbox covers the pixel (~20 flops per sample), and at K > 1 the K-fold
-output writes. Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit
-(chip_smoke.py), sponza 1080p 4x MSAA: K = 1 0.62 ms per launch (8.36 M
-samples; least possible 0.023 ms, bytes), plain version 30.9 ms; the
-translucent sponza at K = 8 1.25 ms (66.8 M layer-samples; least possible
-0.163 ms, bytes), plain version 241 ms. The plain version runs K rounds of
-scatter_reduce("amin"), round l keeping only keys above round l-1's.
+raster_pallas.py:413-418). The kernel's time goes to finding the few
+triangles that touch a block (a block hits ~4 of ~1,000 chunks, and ~3%
+of their triangles touch it) and to evaluating them, not to moving bytes.
+So the block tests the chunk bboxes 4 per thread with their loads in
+flight together, lists the hit chunks by a warp scan and block prefix,
+tests 2 hit chunks' triangles at a time (one triangle per thread, straight
+from global memory) and appends only the touching ones to a compacted
+list of 128, their 19 evaluation rows gathered by ``cp.async`` while the
+next chunks are tested; two lists alternate, and a full one is evaluated
+once the next page's copies are in flight. Each thread then tests its
+pixel against each listed bbox and evaluates its samples; a passing
+fragment nearer than the last slot is inserted by the fully unrolled
+bubble-down of raster_pallas.py:831-852. The kernel is templated on
+(S, K) with K rounded up to 1, 2, 4 or 8, and its launch bounds ask ptxas
+for as many resident blocks as the accumulators allow (no spill at any
+(S, K); the ptxas report is in PERF.md). The plain version runs K rounds
+of scatter_reduce("amin"), round l keeping only keys above round l-1's.
+Times on the card, against the previous design and the bound: PERF.md
+(kernel_ab.py, chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -70,7 +71,9 @@ KERNEL_LAYERS = _cuda.Kernel(
     "via rasterize_pallas, pallas_call :1201)",
 )
 
-# triangles per bbox group (the raster kernel's mid-level skip)
+# triangles per group: the slim flag is their AND; tri_bbox rows 4..7 hold
+# the group bbox, the TPU kernel's mid-level skip (the CUDA kernel lists
+# the triangles that touch a block without it)
 GROUP_SIZE = 8
 
 _BIG = 2 ** 30

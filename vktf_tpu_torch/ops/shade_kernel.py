@@ -55,22 +55,22 @@ gathers (its two-program phase split exists because its VMEM could not
 hold both operands); here the kernels gather both rows themselves, so no
 (2*ROW, N) phase-boundary tensor exists.
 
-CUDA design (``csrc/shade.cu``): one thread per pixel (resolve form) or
-per (layer, pixel) over all K layers in one launch (layer form); an
-uncovered pixel or entry writes its clear result at once. Bound on the
-card: the dependent row gathers (a 256-byte table row, or 28 attribute
-floats, and per tap one to six 256-byte pool rows per pixel) and ~1.6k
-float32 operations per shaded pixel with five lights (~30 powf); rows of
-neighbouring pixels mostly coincide, so the gathers hit L2. Measured on an
-NVIDIA H100 80GB HBM3 at a 700 W power limit (chip_smoke.py): the fused
-one-tap resolve form 0.52 ms over the 2,088,960 pixels of sponza 1080p
-(least possible 0.047 ms, operations), plain version 64 ms; its layer
-form 1.12 ms over the translucent sponza's 8 x 2,088,960 entries,
-3,657,626 of them covered (least possible 0.126 ms, bytes), plain version
-560 ms; four taps 1.57 ms (least possible 0.108 ms); the classic and
-per-slot forms within 0.3 ms of the fused one at one and at four taps (on
-the sponza, whose uvs lie in [0, 1], so neighbouring pixels read the same
-rows from L2). Every form's times are in PERF.md.
+CUDA design (``csrc/shade.cu``): one thread per pixel, in the layer form
+walking that pixel's K layers in one launch; an uncovered pixel or entry
+writes its clear result at once. Bound on the card: float32 work per
+covered entry (~1.6k operations with five lights) behind a chain of
+dependent gathers (tri, the 256-byte table row, one to six 256-byte pool
+rows per tap) that L2 mostly serves. The body is built to issue fewer
+instructions and hold fewer registers: texel bytes decode through two
+256-entry shared-memory tables (u8/255 and its sRGB-to-linear value,
+filled with the inline decode's own expressions, so bit-equal to it) in
+place of 96 divisions and 24 ``powf`` per tap; each (slot, level) is
+addressed once per tap from a level geometry computed once per fragment;
+the table row comes in 16-byte loads, the tail's columns after the texture
+fetches. ptxas keeps every instantiation between 56 and 104 registers
+with no spill at 128-thread blocks. Times on the card, against the
+previous design and the bound, for all 14 records: PERF.md (kernel_ab.py,
+chip_smoke.py).
 
 Arithmetic follows the JAX package's XLA form: the same fused
 multiply-adds (``ops/fmath.py``). Transcendentals (pow, log2, rsqrt) are
@@ -675,6 +675,7 @@ def _check_shade_operands(tri, sx, sy, table, pool):
     if table.dim() != 2 or table.shape[1] != ROW:
         raise ValueError(f"table must be (T, {ROW}), got {tuple(table.shape)}")
     _cuda.require(table, "table", torch.float32, device=dev)
+    _cuda.require_aligned(table, "table")
     _check_pool(pool, dev)
 
 
