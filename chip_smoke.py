@@ -11,15 +11,23 @@ Needs one CUDA card and nvcc. In order, it:
   4. the opaque path (K = 1): renders frames through the port's Scene
      (render_async / render_still) with every kernel launch counter set to
      0 just before and read just after, printing per-stage CUDA-event
-     times and the frame time;
+     times, the synchronized frame time and the steady frame time with 4
+     frames in flight (enqueue, one synchronize, divide); then holds the
+     stream with a ~0.1 s sleep kernel, enqueues 4 frames through
+     render_async and requires the stream still busy when the last call
+     returns (nothing on the frame path waits for the card);
   5. holds each K = 1 kernel against its plain PyTorch version on the
-     card, at the shapes the frame gave it, and times both; prints what
-     the raster kernel stages for the frame's stream (staging_counts);
+     card, at the shapes the frame gave it, and times both; setup and the
+     shade table also as the bare C launch on preallocated outputs (CUDA
+     events around launches queued behind a sleep kernel, and the
+     profiler's kernel time), beside the wrapper; prints what the raster
+     kernel stages for the frame's stream (staging_counts);
   6. renders the same scene at a forced peel_layers=2: the frame must
      equal the K = 1 frame;
   7. the translucent path: the sponza preset with its curtain and clutter
      materials BLEND at alpha 0.5 (K = 8 from the scene), frames through
-     Scene.render_async with the counters zeroed and read, the K-layer
+     Scene.render_async with the counters zeroed and read (in flight and
+     behind a sleeping stream, too), the K-layer
      raster (and its staging counts) and the layer shade held against their
      plain versions and timed, and the stage-by-stage frame against the
      Scene frame;
@@ -61,6 +69,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import subprocess
 import sys
@@ -90,6 +99,9 @@ SHADE_LAYER_ULP = 4
 # (torch.pow), whose last bits may differ: one u8 step on <= 1e-4 pixels
 FORCED_K2_MISMATCH = 1e-4
 TRANSLUCENT_SHARE_MIN = 0.05  # pixels whose nearest surface is translucent
+FRAMES_IN_FLIGHT = 4
+# torch.cuda._sleep cycles holding the stream: ~0.1 s at the H100's clock
+SLEEP_CYCLES = 200_000_000
 
 # the card's published peaks (H100 SXM): HBM bytes/s, float32 operations/s
 HBM_BYTES_PER_S = 3.35e12
@@ -141,6 +153,39 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bare_ms(launch, reps: int) -> float:
+    """Device time of one kernel launch: `launch` calls a C entry point on
+    preallocated outputs; the host queues `reps` of them behind a sleep
+    kernel, so the events around them time the card alone."""
+    launch()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES // 4)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profiled_ms(fn, reps: int, kernel_name: str):
+    """The profiler's device time per call of the kernels whose name holds
+    kernel_name, over `reps` calls of fn; None when it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+                   for e in prof.key_averages() if kernel_name in e.key)
+    return total_us / reps / 1e3 if total_us else None
 
 
 def require(cond: bool, what: str) -> None:
@@ -268,15 +313,17 @@ def shade_bound(tri, sx, sy, table, max_anisotropy: float, num_lights: int, laye
 
 def frame_stages(scn) -> dict:
     """A scene's frame up to the shade, stage by stage with the kernels, as
-    its path gives each stage its inputs: vp, mrowsT, lights, setup,
-    stream, table, and the shade's tri and frac (kernel_ab.py uses it too)."""
+    its path gives each stage its inputs: vp, inst_rows, tri_instance,
+    lights, setup, stream, table, and the shade's tri and frac (kernel_ab.py
+    uses it too)."""
     from vktf_tpu_torch.ops import pipeline, raster, setup_kernel, shade_table
 
     rs, config = scn.render_scene, scn.config
     vp = torch.as_tensor(np.asarray(scn.camera.view_projection_transform, np.float32),
                          device=rs.tri_corner.device)
-    mrowsT, lights = pipeline.scene_update(rs, scn.meta)
-    setup = setup_kernel.setup_pack(rs.tri_corner, mrowsT, vp, config.width, config.height)
+    inst_rows, tri_instance, lights = pipeline.scene_update(rs, scn.meta)
+    setup = setup_kernel.setup_pack(rs.tri_corner, inst_rows, tri_instance, vp, config.width,
+                                    config.height)
     stream = raster.raster_stream(
         setup["tri_data"], setup["bbox_rows"],
         raster.stream_perm(setup["bbox_rows"], setup["valid"], chunk=config.pallas_chunk),
@@ -284,10 +331,10 @@ def frame_stages(scn) -> dict:
     ids, depth = raster.rasterize(*stream, config.padded_height, config.padded_width,
                                   config.msaa_samples, scn.frame_program.layers)
     table = shade_table.build_shade_table(setup["edge9"], rs.tri_corner, rs.tri_static_cols,
-                                          setup["anchor2"], mrowsT)
+                                          setup["anchor2"], inst_rows, tri_instance)
     tri, frac = pipeline.pixel_winner(ids, depth)
-    return dict(vp=vp, mrowsT=mrowsT, lights=lights, setup=setup, stream=stream, table=table,
-                tri=tri, frac=frac)
+    return dict(vp=vp, inst_rows=inst_rows, tri_instance=tri_instance, lights=lights,
+                setup=setup, stream=stream, table=table, tri=tri, frac=frac)
 
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -375,14 +422,29 @@ def main() -> int:
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             stage_ms.append(prog.timer.millis())
+        prog.timer = None
+        # FRAMES_IN_FLIGHT deep: wait for frame i - 4 before enqueuing frame i
+        n_flight = 4 * args.frames
+        pending = collections.deque()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_flight):
+            if len(pending) == FRAMES_IN_FLIGHT:
+                pending.popleft().synchronize()
+            scn.render_async()
+            done = torch.cuda.Event()
+            done.record()
+            pending.append(done)
+        torch.cuda.synchronize()
+        flight_ms = (time.perf_counter() - t0) * 1e3 / n_flight
         still = scn.render_still()
         launches = {k.name: k.launches for k in kernels}
-        prog.timer = None
         log(f"[{tag}] launches in the path:", json.dumps(launches))
         steady = frame_ms[1:] if len(frame_ms) > 1 else frame_ms
         log(f"[{tag}] frame ms (host clock, synchronized): first {frame_ms[0]:.3f}, "
             f"steady median {float(np.median(steady)):.3f}, min {min(steady):.3f}, "
-            f"all {[round(v, 3) for v in frame_ms]}")
+            f"all {[round(v, 3) for v in frame_ms]}; with {FRAMES_IN_FLIGHT} frames in "
+            f"flight: {flight_ms:.3f} per frame over {n_flight}")
         stages = {name: float(np.median([s[name] for s in stage_ms[1:] or stage_ms]))
                   for name in stage_ms[0]}
         log(f"[{tag}] stage ms (CUDA events, steady median):",
@@ -398,6 +460,29 @@ def main() -> int:
         np.save(out_path, still)
         log(f"[{tag}] frame saved:", out_path.relative_to(_cuda.BUILD_DIR.parent.parent))
         return still, launches
+
+    def behind_a_busy_stream(scn, tag: str, still) -> None:
+        """F2: with the stream held by a sleep kernel, FRAMES_IN_FLIGHT
+        render_async calls must return before it ends (nothing on the frame
+        path waits for the card), and give the synchronized frame."""
+        stream = torch.cuda.current_stream(dev)
+        torch.cuda.synchronize()
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        end.record()
+        t0 = time.perf_counter()
+        frames = [scn.render_async() for _ in range(FRAMES_IN_FLIGHT)]
+        host_ms = (time.perf_counter() - t0) * 1e3
+        busy = not stream.query()
+        torch.cuda.synchronize()
+        log(f"[{tag}] frames in flight: {FRAMES_IN_FLIGHT} render_async calls returned after "
+            f"{host_ms:.3f} ms of host time, behind a {begin.elapsed_time(end):.1f} ms sleep "
+            f"kernel; stream still busy when the last returned: {busy}")
+        require(busy, f"{tag}: render_async returns while the card is busy")
+        require(all(np.array_equal(f.cpu().numpy(), still) for f in frames),
+                f"{tag}: the frames enqueued behind the sleep equal the synchronized frame")
 
     def compare_packed(what: str, got, want) -> float:
         """Packed pixels of a kernel against its plain version."""
@@ -433,14 +518,15 @@ def main() -> int:
     still, launches = drive(scene, "opaque")
     require(all(launches[k.name] > 0 for k in kernels[:4]),
             "every K = 1 kernel ran in the opaque path")
+    behind_a_busy_stream(scene, "opaque", still)
     path_launches = {k.name: launches[k.name] for k in kernels[:4]}
 
     # ---- 5. each kernel against its plain version, main-path shapes -----
     rs = scene.render_scene
     vp = torch.as_tensor(np.asarray(camera.view_projection_transform, np.float32), device=dev)
     cam = torch.as_tensor(np.asarray(camera.position, np.float32), device=dev)
-    mrowsT, lights = pipeline.scene_update(rs, meta)
-    t_count = rs.tri_corner.shape[1]
+    inst_rows, tri_instance, lights = pipeline.scene_update(rs, meta)
+    t_count, i_count = rs.tri_corner.shape[1], inst_rows.shape[0]
     records = []
 
     def record(kernel, err, ms, plain_ms, bound_pair):
@@ -451,8 +537,20 @@ def main() -> int:
                         "bound_ms": round(bound_ms, 5), "bound_by": bound_by,
                         "library_ms": None})
 
+    def split_times(what, wrapper, launch, kernel_name):
+        """The wrapper call (as every record is timed) against the bare C
+        launch on preallocated outputs, and the profiler's kernel time."""
+        wrapper_ms = cuda_ms(wrapper, 50)
+        launch_ms = bare_ms(launch, 200)
+        prof_ms = profiled_ms(wrapper, 50, kernel_name)
+        log(f"{what} split: wrapper {wrapper_ms:.4f} ms, bare launch {launch_ms:.4f} ms (CUDA "
+            f"events, launches queued behind a sleep), profiler kernel time "
+            + ("not measured (no device time recorded)" if prof_ms is None
+               else f"{prof_ms:.4f} ms"))
+        return wrapper_ms
+
     # setup
-    args_setup = (rs.tri_corner, mrowsT, vp, width, height)
+    args_setup = (rs.tri_corner, inst_rows, tri_instance, vp, width, height)
     got = setup_kernel.setup_pack(*args_setup)
     want = setup_kernel.setup_pack_plain(*args_setup)
     require(torch.equal(got["valid"], want["valid"]), "setup valid exact")
@@ -469,11 +567,23 @@ def main() -> int:
         f"not bit-equal {total} of {count}, max |diff| {worst:.3e} "
         f"(tolerance: {SETUP_FLOAT_MISMATCH} of values)")
     require(total <= SETUP_FLOAT_MISMATCH * count, "setup float rows")
-    # reads 9 corner rows, 12 matrix rows and the id row; writes 24 + 4 +
-    # 9 + 2 float rows and one byte
-    record(setup_kernel.KERNEL, worst, cuda_ms(lambda: setup_kernel.setup_pack(*args_setup), 50),
-           cuda_ms(lambda: setup_kernel.setup_pack_plain(*args_setup), 3),
-           bound(t_count * (22 * 4 + 39 * 4 + 1), t_count * SETUP_OPS))
+    lib = _cuda.library(setup_kernel.KERNEL.source)
+    outs = [torch.empty_like(got[k]) for k in ("tri_data", "bbox_rows", "edge9", "anchor2")]
+    valid_u8 = torch.empty((t_count,), dtype=torch.uint8, device=dev)
+    argv = (*(_cuda.ptr(x) for x in (rs.tri_corner, inst_rows, tri_instance, vp)), None,
+            *(_cuda.ptr(x) for x in (*outs, valid_u8)), t_count, width, height,
+            _cuda.stream_of(vp))
+    setup_ms = split_times("setup", lambda: setup_kernel.setup_pack(*args_setup),
+                           lambda: lib.vktf_setup_pack(*argv), "setup_kernel")
+    # reads 9 corner rows, the instance index, the view projection and the
+    # (I, 16) instance rows; writes 24 + 4 + 9 + 2 float rows and one byte
+    old_bound = bound(t_count * (22 * 4 + 39 * 4 + 1), t_count * SETUP_OPS)
+    setup_bound = bound(t_count * (9 * 4 + 4 + 39 * 4 + 1) + 64 + i_count * 64,
+                        t_count * SETUP_OPS)
+    log(f"setup bound: {setup_bound[0]:.5f} ms ({setup_bound[1]}); with the per-triangle "
+        f"matrix rows and id row of the earlier design: {old_bound[0]:.5f} ms")
+    record(setup_kernel.KERNEL, worst, setup_ms,
+           cuda_ms(lambda: setup_kernel.setup_pack_plain(*args_setup), 3), setup_bound)
 
     # raster (full frame)
     setup = got
@@ -497,18 +607,28 @@ def main() -> int:
            raster_bound(stream, ph, pw, config.msaa_samples, 1))
 
     # shade table
-    t_args = (setup["edge9"], rs.tri_corner, rs.tri_static_cols, setup["anchor2"], mrowsT)
+    t_args = (setup["edge9"], rs.tri_corner, rs.tri_static_cols, setup["anchor2"], inst_rows,
+              tri_instance)
     table = shade_table.build_shade_table(*t_args)
     table_p = shade_table.build_shade_table_plain(*t_args)
     n_bad, t_err = bits_mismatch(table, table_p)
     log(f"shade table: {tuple(table.shape)}, not bit-equal {n_bad} of {table.numel()}, "
         f"max |diff| {t_err:.3e} (tolerance: {TABLE_MISMATCH} of values)")
     require(n_bad <= TABLE_MISMATCH * table.numel(), "shade table")
-    # reads 9 edge, 36 corner, 15 material, 2 anchor and 12 matrix rows;
-    # writes a 64-float row
-    record(shade_table.KERNEL, t_err, cuda_ms(lambda: shade_table.build_shade_table(*t_args), 50),
-           cuda_ms(lambda: shade_table.build_shade_table_plain(*t_args), 3),
-           bound(t_count * ((9 + 36 + 15 + 2 + 12) * 4 + 64 * 4), t_count * TABLE_OPS))
+    lib = _cuda.library(shade_table.KERNEL.source)
+    table_out = torch.empty_like(table)
+    argv_t = (*(_cuda.ptr(x) for x in (*t_args, table_out)), t_count, _cuda.stream_of(table))
+    table_ms = split_times("shade table", lambda: shade_table.build_shade_table(*t_args),
+                           lambda: lib.vktf_shade_table(*argv_t), "table_kernel")
+    # reads 9 edge, 36 corner, 15 material and 2 anchor rows, the instance
+    # index and the (I, 16) instance rows; writes a 64-float row
+    old_bound = bound(t_count * ((9 + 36 + 15 + 2 + 12) * 4 + 64 * 4), t_count * TABLE_OPS)
+    table_bound = bound(t_count * ((9 + 36 + 15 + 2) * 4 + 4 + 64 * 4) + i_count * 64,
+                        t_count * TABLE_OPS)
+    log(f"shade table bound: {table_bound[0]:.5f} ms ({table_bound[1]}); with the "
+        f"per-triangle matrix rows of the earlier design: {old_bound[0]:.5f} ms")
+    record(shade_table.KERNEL, t_err, table_ms,
+           cuda_ms(lambda: shade_table.build_shade_table_plain(*t_args), 3), table_bound)
 
     # shade + resolve (all pixels)
     tri, frac = pipeline.pixel_winner(ids, depth)
@@ -545,14 +665,16 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     require(layers == 8, "the translucent sponza renders K = 8 layers")
     still_t, launches_t = drive(scene_t, "translucent")
+    behind_a_busy_stream(scene_t, "translucent", still_t)
     require(all(launches_t[k.name] > 0 for k in (setup_kernel.KERNEL, raster.KERNEL_LAYERS,
                                                   shade_table.KERNEL, shade_kernel.KERNEL_LAYER)),
             "every K-layer kernel ran in the translucent path")
     path_launches.update({k: launches_t[k] for k in ("raster_layers", "shade_layer")})
 
     rs_t = scene_t.render_scene
-    mrowsT_t, lights_t = pipeline.scene_update(rs_t, meta_t)
-    setup_t = setup_kernel.setup_pack(rs_t.tri_corner, mrowsT_t, vp, width, height)
+    inst_rows_t, tri_instance_t, lights_t = pipeline.scene_update(rs_t, meta_t)
+    setup_t = setup_kernel.setup_pack(rs_t.tri_corner, inst_rows_t, tri_instance_t, vp, width,
+                                      height)
     perm_t = raster.stream_perm(setup_t["bbox_rows"], setup_t["valid"], chunk=config.pallas_chunk)
     stream_t = raster.raster_stream(setup_t["tri_data"], setup_t["bbox_rows"], perm_t,
                                     chunk=config.pallas_chunk)
@@ -574,7 +696,8 @@ def main() -> int:
            raster_bound(stream_t, ph, pw, config.msaa_samples, layers))
 
     table_t = shade_table.build_shade_table(setup_t["edge9"], rs_t.tri_corner,
-                                            rs_t.tri_static_cols, setup_t["anchor2"], mrowsT_t)
+                                            rs_t.tri_static_cols, setup_t["anchor2"],
+                                            inst_rows_t, tri_instance_t)
     tri_t, frac_t = pipeline.pixel_winner(ids_t, depth_t)
     amode = rs_t.tri_static_cols[13]
     front = tri_t[0].reshape(ph, pw)[:height, :width]

@@ -16,7 +16,9 @@ source, tap count and the attrs boundary; a plane whose textures hold
 every byte value in every channel (the decode tables); streams whose
 chunks overlap a block with few touching triangles, chunks whose triangles
 all touch one block (full compacted lists), and a 300-deep equal-depth
-stack shuffled across chunks. Tolerance: bit-equal (the
+stack shuffled across chunks; shade tables of random rows at 1, 129 and
+896 triangles and over 1,000 instances; setup with and without an id row;
+frames enqueued behind a sleeping stream. Tolerance: bit-equal (the
 kernels run the plain versions' operations in the same order, with fused
 multiply-adds at the same places and the same CUDA math library).
 """
@@ -55,11 +57,12 @@ def _stages(device, msaa):
     vp = torch.as_tensor(
         np.asarray(tp.port_camera().view_projection_transform, np.float32),
         device=device)
-    mrowsT, lights = pipeline.scene_update(rs, meta)
-    setup = setup_kernel.setup_pack(rs.tri_corner, mrowsT, vp, tp.WIDTH, tp.HEIGHT)
+    inst_rows, tri_instance, lights = pipeline.scene_update(rs, meta)
+    setup = setup_kernel.setup_pack(rs.tri_corner, inst_rows, tri_instance, vp, tp.WIDTH,
+                                    tp.HEIGHT)
     perm = raster.stream_perm(setup["bbox_rows"], setup["valid"])
     stream = raster.raster_stream(setup["tri_data"], setup["bbox_rows"], perm)
-    return rs, mrowsT, lights, vp, setup, stream
+    return rs, (inst_rows, tri_instance), lights, vp, setup, stream
 
 
 def _assert_dicts_bit_equal(got, want):
@@ -74,10 +77,11 @@ def _assert_dicts_bit_equal(got, want):
 def test_setup_kernel_special_cases(dev):
     from vktf_tpu_torch.ops import setup_kernel
 
-    tri_corner, mrowsT = tp.seeded_triangles()
+    tri_corner, inst_rows, tri_instance = tp.seeded_triangles()
     vp = np.asarray(tp.port_camera().view_projection_transform, np.float32)
-    args = (torch.from_numpy(tri_corner).to(dev), torch.from_numpy(mrowsT).to(dev),
-            torch.from_numpy(vp).to(dev), tp.WIDTH, tp.HEIGHT)
+    args = (torch.from_numpy(tri_corner).to(dev), torch.from_numpy(inst_rows).to(dev),
+            torch.from_numpy(tri_instance).to(dev), torch.from_numpy(vp).to(dev), tp.WIDTH,
+            tp.HEIGHT)
     before = setup_kernel.KERNEL.launches
     got = setup_kernel.setup_pack(*args)
     assert setup_kernel.KERNEL.launches == before + 1
@@ -87,9 +91,24 @@ def test_setup_kernel_special_cases(dev):
 def test_setup_kernel_sponza(dev):
     from vktf_tpu_torch.ops import setup_kernel
 
-    rs, mrowsT, _lights, vp, setup, _stream = _stages(dev, 4)
-    want = setup_kernel.setup_pack_plain(rs.tri_corner, mrowsT, vp, tp.WIDTH, tp.HEIGHT)
+    rs, inst, _lights, vp, setup, _stream = _stages(dev, 4)
+    want = setup_kernel.setup_pack_plain(rs.tri_corner, *inst, vp, tp.WIDTH, tp.HEIGHT)
     _assert_dicts_bit_equal(setup, want)
+
+
+def test_setup_kernel_ids_null_equals_arange(dev):
+    """ids=None (the kernel writes each triangle's index) against an
+    explicit arange, and an explicit permuted id row, bit for bit."""
+    from vktf_tpu_torch.ops import setup_kernel
+
+    rs, inst, _lights, vp, setup, _stream = _stages(dev, 4)
+    t = rs.tri_corner.shape[1]
+    ids = torch.arange(t, dtype=torch.float32, device=dev)
+    _assert_dicts_bit_equal(setup, setup_kernel.setup_pack(rs.tri_corner, *inst, vp, tp.WIDTH,
+                                                           tp.HEIGHT, ids))
+    shuffled = ids[torch.randperm(t, device=dev)]
+    args = (rs.tri_corner, *inst, vp, tp.WIDTH, tp.HEIGHT, shuffled)
+    _assert_dicts_bit_equal(setup_kernel.setup_pack(*args), setup_kernel.setup_pack_plain(*args))
 
 
 @pytest.mark.parametrize("msaa", [1, 2, 4, 8])
@@ -127,8 +146,47 @@ def test_raster_kernel_fill_rules(dev, msaa):
 def test_shade_table_kernel(dev):
     from vktf_tpu_torch.ops import shade_table
 
-    rs, mrowsT, _lights, _vp, setup, _stream = _stages(dev, 4)
-    args = (setup["edge9"], rs.tri_corner, rs.tri_static_cols, setup["anchor2"], mrowsT)
+    rs, inst, _lights, _vp, setup, _stream = _stages(dev, 4)
+    args = (setup["edge9"], rs.tri_corner, rs.tri_static_cols, setup["anchor2"], *inst)
+    got = shade_table.build_shade_table(*args)
+    tp.assert_bits_equal(got.cpu().numpy(),
+                         shade_table.build_shade_table_plain(*args).cpu().numpy(), "table")
+
+
+def _random_table_inputs(dev, t, instances, seed=0):
+    """Seeded (edge9, tri_corner, static_cols, anchor2, inst_rows,
+    tri_instance) on `dev`: every instance index in [0, instances) used
+    when t allows."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape):
+        return torch.from_numpy(rng.normal(0, 3, shape).astype(np.float32)).to(dev)
+
+    idx = np.arange(t) % instances
+    rng.shuffle(idx)
+    return (f(9, t), f(36, t), f(15, t), f(2, t), f(instances, 16),
+            torch.from_numpy(idx.astype(np.int32)).to(dev))
+
+
+@pytest.mark.parametrize("t", [1, 129, 128 * 7])
+def test_shade_table_kernel_ragged_blocks(dev, t):
+    """One triangle, a ragged last block of one row, and whole blocks."""
+    from vktf_tpu_torch.ops import shade_table
+
+    args = _random_table_inputs(dev, t, 3)
+    got = shade_table.build_shade_table(*args)
+    want = shade_table.build_shade_table_plain(*args)
+    assert got.shape == (t, 64)
+    assert bool((got[:, 56:] == 0).all())
+    tp.assert_bits_equal(got.cpu().numpy(), want.cpu().numpy(), "table")
+
+
+def test_shade_table_kernel_many_instances(dev):
+    """1,000 instances, every index from 0 to 999 used, shuffled."""
+    from vktf_tpu_torch.ops import shade_table
+
+    args = _random_table_inputs(dev, 5000, 1000, seed=1)
+    assert int(args[-1].unique().numel()) == 1000
     got = shade_table.build_shade_table(*args)
     tp.assert_bits_equal(got.cpu().numpy(),
                          shade_table.build_shade_table_plain(*args).cpu().numpy(), "table")
@@ -137,10 +195,10 @@ def test_shade_table_kernel(dev):
 def test_shade_kernel(dev):
     from vktf_tpu_torch.ops import pipeline, raster, shade_kernel, shade_table
 
-    rs, mrowsT, lights, _vp, setup, stream = _stages(dev, 4)
+    rs, inst, lights, _vp, setup, stream = _stages(dev, 4)
     ids, depth = raster.rasterize(*stream, tp.HEIGHT, tp.WIDTH, 4)
     table = shade_table.build_shade_table(setup["edge9"], rs.tri_corner,
-                                          rs.tri_static_cols, setup["anchor2"], mrowsT)
+                                          rs.tri_static_cols, setup["anchor2"], *inst)
     tri, frac = pipeline.pixel_winner(ids, depth)
     sx, sy = pipeline.pixel_centers(tp.HEIGHT, tp.WIDTH, dev)
     cam = torch.tensor(tp.CAMERA_POSITION, dtype=torch.float32, device=dev)
@@ -191,10 +249,10 @@ def test_raster_kernel_equal_depth_stack(dev, msaa):
 def test_shade_layer_kernel(dev):
     from vktf_tpu_torch.ops import pipeline, raster, shade_kernel, shade_table
 
-    rs, mrowsT, lights, _vp, setup, stream = _stages(dev, 4)
+    rs, inst, lights, _vp, setup, stream = _stages(dev, 4)
     ids, depth = raster.rasterize(*stream, tp.HEIGHT, tp.WIDTH, 4, 3)
     table = shade_table.build_shade_table(setup["edge9"], rs.tri_corner,
-                                          rs.tri_static_cols, setup["anchor2"], mrowsT)
+                                          rs.tri_static_cols, setup["anchor2"], *inst)
     tri, _frac = pipeline.pixel_winner(ids, depth)
     sx, sy = pipeline.pixel_centers(tp.HEIGHT, tp.WIDTH, dev)
     cam = torch.tensor(tp.CAMERA_POSITION, dtype=torch.float32, device=dev)
@@ -213,20 +271,53 @@ def test_shade_layer_kernel(dev):
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
     from vktf_tpu_torch.ops import raster, setup_kernel, shade_table
 
-    rs, mrowsT, _lights, vp, setup, stream = _stages(dev, 4)
+    rs, (inst_rows, tri_instance), _lights, vp, setup, stream = _stages(dev, 4)
     with pytest.raises(ValueError):  # float64 corners
-        setup_kernel.setup_pack(rs.tri_corner.double(), mrowsT, vp, 8, 8)
+        setup_kernel.setup_pack(rs.tri_corner.double(), inst_rows, tri_instance, vp, 8, 8)
     with pytest.raises(ValueError):  # operands on two devices
-        setup_kernel.setup_pack(rs.tri_corner, mrowsT.cpu(), vp, 8, 8)
+        setup_kernel.setup_pack(rs.tri_corner, inst_rows.cpu(), tri_instance, vp, 8, 8)
+    with pytest.raises(ValueError):  # the view projection still on the host
+        setup_kernel.setup_pack(rs.tri_corner, inst_rows, tri_instance, vp.cpu(), 8, 8)
+    t_args = (setup["edge9"], rs.tri_corner, rs.tri_static_cols, setup["anchor2"])
+    for bad in (tri_instance.long(), tri_instance[:-1]):  # not int32; one short
+        with pytest.raises(ValueError):
+            setup_kernel.setup_pack(rs.tri_corner, inst_rows, bad, vp, 8, 8)
+        with pytest.raises(ValueError):
+            shade_table.build_shade_table(*t_args, inst_rows, bad)
+    with pytest.raises(ValueError):  # instance rows not (I, 16)
+        shade_table.build_shade_table(*t_args, inst_rows.reshape(-1, 8), tri_instance)
     with pytest.raises(ValueError):  # non-contiguous
         shade_table.build_shade_table(setup["edge9"][:, ::2], rs.tri_corner[:, ::2],
                                       rs.tri_static_cols[:, ::2],
-                                      setup["anchor2"][:, ::2], mrowsT[:, ::2])
+                                      setup["anchor2"][:, ::2], inst_rows, tri_instance[::2])
     with pytest.raises(ValueError):  # frame not a multiple of the 16 px block
         raster.rasterize(*stream, 100, 100, 4)
     for layers in (0, 9):  # the kernel keeps 1..8 layers
         with pytest.raises(ValueError):
             raster.rasterize(*stream, tp.HEIGHT, tp.WIDTH, 4, layers)
+
+
+@pytest.mark.parametrize("name", ["sponza_small", "sponza_small_blend"])
+def test_render_async_returns_while_the_stream_is_busy(dev, name):
+    """Nothing on the frame path waits for the card, at K = 1 and K = 8:
+    with the stream held by a ~0.1 s sleep kernel, four render_async calls
+    return before it ends, and their frames are the synchronized one."""
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.scene.scene import Scene
+
+    scene = Scene(tp.torch_assets(name), RenderConfig(width=tp.WIDTH, height=tp.HEIGHT,
+                                                      msaa_samples=4),
+                  camera=tp.port_camera(), device=dev)
+    assert scene.frame_program.layers == (8 if name.endswith("blend") else 1)
+    want = scene.render_still()  # builds the kernels and the scene state
+    stream = torch.cuda.current_stream(dev)
+    torch.cuda._sleep(200_000_000)
+    frames = [scene.render_async() for _ in range(4)]
+    busy = not stream.query()
+    torch.cuda.synchronize()
+    assert busy, "render_async waited for the card"
+    for frame in frames:
+        np.testing.assert_array_equal(frame.cpu().numpy(), want)
 
 
 _CLAMP = {"wrap_u": "clamp_to_edge", "wrap_v": "clamp_to_edge"}

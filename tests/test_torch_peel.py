@@ -130,9 +130,9 @@ def _quad_setup(quads, width, height):
             tri_corner[6 + i, k] = px / width * 2 - 1
             tri_corner[9 + i, k] = py / height * 2 - 1
             tri_corner[12 + i, k] = zs[k]
-    mrowsT = np.tile(np.eye(4, dtype=np.float32).reshape(16, 1), (1, t))
-    return setup_pack(torch.from_numpy(tri_corner), torch.from_numpy(mrowsT),
-                      torch.eye(4), width, height)
+    inst_rows, tri_instance = tp.identity_instance(t)
+    return setup_pack(torch.from_numpy(tri_corner), torch.from_numpy(inst_rows),
+                      torch.from_numpy(tri_instance), torch.eye(4), width, height)
 
 
 @pytest.mark.parametrize("case, layers, msaa", [

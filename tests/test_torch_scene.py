@@ -133,9 +133,35 @@ def test_scene_update_matches_jax():
     got_global = propagate_transforms(rs.node_local, rs.node_parent,
                                       meta.level_slices)
     tp.assert_bits_equal(got_global.numpy(), want_global, "node_global")
-    mrowsT, lights = scene_update(rs, meta)
-    tp.assert_bits_equal(mrowsT.numpy().T, want_mrows, "mrows")
+    inst_rows, tri_instance, lights = scene_update(rs, meta)
+    assert inst_rows.shape == (meta.num_instances, 16) and tri_instance.dtype == torch.int32
+    tp.assert_bits_equal(inst_rows[tri_instance.long()].numpy(), want_mrows, "mrows")
     np.testing.assert_allclose(lights.numpy(), want_lights, rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("leaf", ["node_local", "light_color"])
+def test_in_place_edit_rerenders(leaf):
+    """An in-place edit of a scene tensor reaches the next frame: the frame
+    equals a fresh Scene's over the same tensors on every pixel, and
+    differs from the frame before the edit."""
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
+    from vktf_tpu_torch.models.scenes import build_preset
+    from vktf_tpu_torch.scene.scene import Scene
+
+    camera = Camera((-2.5, 0.8, 0.0), (1.0, -0.3, 0.0), ViewFrustumParams(0.8, 2.0, 0.1, 100.0))
+    config = RenderConfig(width=64, height=32, msaa_samples=4)
+    scene = Scene(build_preset("box"), config, camera=camera, device="cpu")
+    before = scene.render_still()
+    rs = scene.render_scene
+    if leaf == "node_local":
+        rs.node_local[:, 1, 3] += 0.7  # every node 0.7 up
+    else:
+        rs.light_color.mul_(0.5)
+    after = scene.render_still()
+    fresh = Scene.from_render_scene(rs, scene.meta, config, camera).render_still()
+    np.testing.assert_array_equal(after, fresh)
+    assert (after != before).any(axis=0).sum() > 100
 
 
 def test_scene_from_numpy_dtypes():

@@ -46,15 +46,16 @@ def _jax_setup_kernel(tri_corner, mrowsT, vp):
     return {k: np.asarray(v) for k, v in out.items()}
 
 
-def _port_setup(tri_corner, mrowsT, vp):
+def _port_setup(tri_corner, inst_rows, tri_instance, vp):
     from vktf_tpu_torch.ops.setup_kernel import setup_pack
     from vktf_tpu_torch.ops.vertex import clip_corners, setup_from_corners
 
-    args = (tp.as_torch(tri_corner), tp.as_torch(mrowsT),
-            tp.as_torch(np.asarray(vp, np.float32)))
+    corners, vp_t = tp.as_torch(tri_corner), tp.as_torch(np.asarray(vp, np.float32))
     out = {k: v.numpy() for k, v in
-           setup_pack(*args, tp.WIDTH, tp.HEIGHT).items()}
-    flat = setup_from_corners(*clip_corners(*args), tp.WIDTH, tp.HEIGHT)
+           setup_pack(corners, tp.as_torch(inst_rows), tp.as_torch(tri_instance), vp_t,
+                      tp.WIDTH, tp.HEIGHT).items()}
+    mrowsT = tp.as_torch(tp.gathered_rowsT(inst_rows, tri_instance))
+    flat = setup_from_corners(*clip_corners(corners, mrowsT, vp_t), tp.WIDTH, tp.HEIGHT)
     out["inv_det"] = flat["inv_det"].numpy()
     return out
 
@@ -126,18 +127,32 @@ def test_setup_matches_jax_on_sponza_small():
     setup, _lights, vp = tp.jax_setup("sponza_small")
     scene, _meta = tp.jax_scene("sponza_small")
     tri_corner = np.asarray(scene.tri_corner)
-    got = _port_setup(tri_corner, setup["mrows"].T, vp)
+    inst_rows, tri_instance = tp.instances_of(setup["mrows"], scene.tri_instance,
+                                              scene.inst_node.shape[0])
+    got = _port_setup(tri_corner, inst_rows, tri_instance, vp)
     assert got["valid"].sum() > 1000
     _assert_setup_equal(got, setup, *_clip_z(tri_corner, setup["mrows"].T, vp),
                         max_inconsistent=1)
 
 
 def test_setup_matches_jax_on_special_cases():
-    tri_corner, mrowsT = tp.seeded_triangles()
+    _check_special_cases(*tp.seeded_triangles())
+
+
+def test_setup_matches_jax_on_seven_rigid_instances():
+    """The special cases under 7 random rigid instances, a random one per
+    triangle: the port indexes the (I, 16) rows by the int32 index, the
+    JAX kernel reads their gather as its mrowsT."""
+    tri_corner, _rows, _idx = tp.seeded_triangles()
+    _check_special_cases(tri_corner, *tp.seeded_instances(tri_corner.shape[1]))
+
+
+def _check_special_cases(tri_corner, inst_rows, tri_instance):
+    mrowsT = tp.gathered_rowsT(inst_rows, tri_instance)
     _jcam, tcam = tp.cameras()
     vp = tcam.view_projection_transform
     want = _jax_setup_kernel(tri_corner, mrowsT, vp)
-    got = _port_setup(tri_corner, mrowsT, vp)
+    got = _port_setup(tri_corner, inst_rows, tri_instance, vp)
     # the categories really reach the setup's branches
     td = want["tri_data"]
     assert 0 < want["valid"].sum() < want["valid"].size

@@ -58,11 +58,45 @@ def test_table_matches_jax_bit_for_bit():
     st = _jax_frame_stages()
     setup, scene = st["setup"], st["scene"]
     want = tp.unpack_table(st["table"])
+    inst_rows, tri_instance = tp.instances_of(setup["mrows"], scene.tri_instance,
+                                              scene.inst_node.shape[0])
     got = build_shade_table(
         tp.as_torch(setup["edge9"]), tp.as_torch(scene.tri_corner),
         tp.as_torch(scene.tri_static_cols), tp.as_torch(setup["anchor2"]),
-        tp.as_torch(np.asarray(setup["mrows"]).T))
+        tp.as_torch(inst_rows), tp.as_torch(tri_instance))
     assert got.shape == want.shape == (scene.tri_corner.shape[1], 64)
+    tp.assert_bits_equal(got.numpy(), want, "shade table")
+
+
+def test_table_matches_jax_on_seven_rigid_instances():
+    """The seeded special-case triangles under 7 random rigid instances (a
+    random one per triangle) and random material columns: the port's table
+    indexes the (I, 16) rows by the int32 index, the JAX kernel reads their
+    gather; bit for bit."""
+    import types
+
+    from vktf_tpu.ops.setup_kernel import setup_pack_kernel
+    from vktf_tpu.ops.shade_table import build_shade_table_pallas
+    from vktf_tpu_torch.ops.shade_table import build_shade_table
+
+    tri_corner, _rows, _idx = tp.seeded_triangles()
+    t = tri_corner.shape[1]
+    inst_rows, tri_instance = tp.seeded_instances(t)
+    assert len(np.unique(tri_instance)) == inst_rows.shape[0] == 7
+    mrowsT = tp.gathered_rowsT(inst_rows, tri_instance)
+    static_cols = np.random.default_rng(11).uniform(0, 4, (15, t)).astype(np.float32)
+    vp = np.asarray(tp.cameras()[0].view_projection_transform, np.float32)
+    setup = jax.jit(lambda tc, m, v, p: setup_pack_kernel(
+        tc, m, v, p, tp.WIDTH, tp.HEIGHT, interpret=True))(
+            tri_corner, mrowsT, np.ones((1, t), np.float32), vp)
+    jsetup = dict(valid=setup["valid"], edge9=setup["edge9"], anchor2=setup["anchor2"],
+                  mrows=mrowsT.T)
+    jscene = types.SimpleNamespace(tri_corner=tri_corner, tri_static_cols=static_cols)
+    want = tp.unpack_table(build_shade_table_pallas(jsetup, jscene, None, interpret=True))
+    got = build_shade_table(
+        tp.as_torch(setup["edge9"]), tp.as_torch(tri_corner), tp.as_torch(static_cols),
+        tp.as_torch(setup["anchor2"]), tp.as_torch(inst_rows), tp.as_torch(tri_instance))
+    assert got.shape == want.shape == (t, 64)
     tp.assert_bits_equal(got.numpy(), want, "shade table")
 
 

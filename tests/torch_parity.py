@@ -158,9 +158,56 @@ def jax_setup(name: str, msaa: int = 4):
     return {k: np.asarray(v) for k, v in setup.items()}, np.asarray(lights), vp
 
 
+def identity_instance(t: int):
+    """One identity instance for t triangles: (inst_rows (1, 16) f32,
+    tri_instance (T,) i32)."""
+    return np.eye(4, dtype=np.float32).reshape(1, 16), np.zeros(t, np.int32)
+
+
+def gathered_rowsT(inst_rows, tri_instance) -> np.ndarray:
+    """The (16, T) per-triangle instance-matrix rows the JAX kernels take
+    (mrowsT): inst_rows (I, 16) gathered by tri_instance (T,)."""
+    return np.ascontiguousarray(np.asarray(inst_rows)[np.asarray(tri_instance)].T)
+
+
+def instances_of(mrows, tri_instance, num_instances: int):
+    """(inst_rows (I, 16) f32, tri_instance (T,) i32) whose gather is the
+    per-triangle rows mrows (T, 16) bit for bit (an instance without
+    triangles keeps a zero row)."""
+    mrows = np.asarray(mrows, np.float32)
+    idx = np.asarray(tri_instance).astype(np.int32)
+    inst_rows = np.zeros((num_instances, 16), np.float32)
+    inst_rows[idx[::-1]] = mrows[::-1]  # the first triangle of each instance wins
+    assert np.array_equal(inst_rows[idx].view(np.int32), mrows.view(np.int32))
+    return inst_rows, idx
+
+
+def seeded_instances(t: int, count: int = 7, seed: int = 5):
+    """`count` random rigid instances about the sponza camera (a rotation
+    of up to 0.3 rad about a random axis through the eye, then a shift of
+    ~0.5) and a random instance for each of t triangles: (inst_rows
+    (count, 16) f32, tri_instance (T,) i32)."""
+    rng = np.random.default_rng(seed)
+    eye = np.asarray(CAMERA_POSITION, np.float64)
+    rows = []
+    for _ in range(count):
+        axis = rng.normal(0, 1, 3)
+        axis /= np.linalg.norm(axis)
+        angle = rng.uniform(-0.3, 0.3)
+        k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        rot = np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * k @ k
+        m = np.eye(4)
+        m[:3, :3] = rot
+        m[:3, 3] = eye - rot @ eye + rng.normal(0, 0.5, 3)
+        rows.append(m.reshape(16))
+    return (np.asarray(rows, np.float32),
+            rng.integers(0, count, t).astype(np.int32))
+
+
 def seeded_triangles(count: int = 1536, seed: int = 3):
-    """(tri_corner (36, T), mrowsT (16, T)) in world space (identity
-    instance matrices) around the sponza camera, by category: ordinary,
+    """(tri_corner (36, T), inst_rows (1, 16), tri_instance (T,)) in world
+    space (one identity instance) around the sponza camera, by category: ordinary,
     back-facing, near-plane crossers, all behind the eye, degenerate
     (collinear or a repeated corner), off screen, huge (screen coordinates
     beyond 32768 px), pixel-sized slivers."""
@@ -215,8 +262,7 @@ def seeded_triangles(count: int = 1536, seed: int = 3):
     for c in range(3):
         for i in range(3):
             tri_corner[6 + c * 3 + i] = pos[:, i, c]
-    mrowsT = np.tile(np.eye(4, dtype=np.float32).reshape(16, 1), (1, t))
-    return tri_corner, mrowsT
+    return (tri_corner, *identity_instance(t))
 
 
 def setup_px(tris, width, height, z=0.5):
@@ -233,9 +279,9 @@ def setup_px(tris, width, height, z=0.5):
             tri_corner[6 + 0 * 3 + i, k] = px / width * 2 - 1
             tri_corner[6 + 1 * 3 + i, k] = py / height * 2 - 1
             tri_corner[6 + 2 * 3 + i, k] = zs[k]
-    mrowsT = np.tile(np.eye(4, dtype=np.float32).reshape(16, 1), (1, t))
-    return setup_pack(torch.from_numpy(tri_corner), torch.from_numpy(mrowsT),
-                      torch.eye(4), width, height)
+    inst_rows, tri_instance = identity_instance(t)
+    return setup_pack(torch.from_numpy(tri_corner), torch.from_numpy(inst_rows),
+                      torch.from_numpy(tri_instance), torch.eye(4), width, height)
 
 
 def port_camera(width: int = WIDTH, height: int = HEIGHT):
@@ -390,14 +436,15 @@ def port_stages(scene):
     dev = rs.device
     vp = torch.as_tensor(np.asarray(scene.camera.view_projection_transform, np.float32),
                          device=dev)
-    mrowsT, lights = pipeline.scene_update(rs, meta)
-    setup = setup_kernel.setup_pack(rs.tri_corner, mrowsT, vp, cfg.width, cfg.height)
+    inst_rows, tri_instance, lights = pipeline.scene_update(rs, meta)
+    setup = setup_kernel.setup_pack(rs.tri_corner, inst_rows, tri_instance, vp, cfg.width,
+                                    cfg.height)
     stream = raster.raster_stream(setup["tri_data"], setup["bbox_rows"],
                                   raster.stream_perm(setup["bbox_rows"], setup["valid"]))
     ids, depth = raster.rasterize(*stream, cfg.padded_height, cfg.padded_width,
                                   cfg.msaa_samples, prog.layers)
     table = shade_table.build_shade_table(setup["edge9"], rs.tri_corner, rs.tri_static_cols,
-                                          setup["anchor2"], mrowsT)
+                                          setup["anchor2"], inst_rows, tri_instance)
     tri, frac = pipeline.pixel_winner(ids, depth)
     sx, sy = pipeline.pixel_centers(cfg.padded_height, cfg.padded_width, dev)
     return dict(tri=tri, frac=frac, sx=sx, sy=sy, table=table, pool=rs.quad_pool,

@@ -3,9 +3,13 @@
 // Replaces vktf_tpu/ops/setup_kernel.py `_kernel` / `_flat_valid` (the
 // Pallas call in setup_pack_kernel). One thread per triangle; inputs and
 // outputs are component-major (C, T) rows, so each warp's load or store of
-// one row is one 128-byte line. The arithmetic is vktf_tpu_torch/ops/
-// vertex.py's setup_from_corners op for op: fma_rn exactly where that
-// plain version calls fma, plain rounded operations everywhere else.
+// one row is one 128-byte line. The instance matrix comes from the (I, 16)
+// row-major rows by the triangle's int32 instance index, as three 16-byte
+// loads that stay in cache. Bound by bytes (36 bytes of corners and the
+// index read, 157 bytes written per triangle). The arithmetic is
+// vktf_tpu_torch/ops/vertex.py's setup_from_corners op for op: fma_rn
+// exactly where that plain version calls fma, plain rounded operations
+// (IEEE divisions included) everywhere else.
 #include "common.cuh"
 
 namespace {
@@ -21,15 +25,17 @@ struct Plane {
   float a, b, c;
 };
 
-__global__ void setup_kernel(const float* __restrict__ tc, const float* __restrict__ mrt,
-                             const float* __restrict__ vp, const float* __restrict__ ids,
-                             float* __restrict__ tri_data, float* __restrict__ bbox_rows,
-                             float* __restrict__ edge9, float* __restrict__ anchor2,
-                             uint8_t* __restrict__ valid_out, int t, int width, int height) {
+__global__ void setup_kernel(const float* __restrict__ tc, const float4* __restrict__ inst_rows,
+                             const int* __restrict__ tri_instance, const float* __restrict__ vp,
+                             const float* __restrict__ ids, float* __restrict__ tri_data,
+                             float* __restrict__ bbox_rows, float* __restrict__ edge9,
+                             float* __restrict__ anchor2, uint8_t* __restrict__ valid_out, int t,
+                             int width, int height) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= t) return;
   auto TC = [&](int r) { return tc[(size_t)r * t + k]; };
-  auto M = [&](int r) { return mrt[(size_t)r * t + k]; };
+  const float4* m4 = inst_rows + (size_t)tri_instance[k] * 4;
+  const float4 mr[3] = {__ldg(m4), __ldg(m4 + 1), __ldg(m4 + 2)};
 
   // world corners (rows 6..14: channel c of corner i at 6 + 3c + i), clip
   float wc[3][3];
@@ -37,9 +43,8 @@ __global__ void setup_kernel(const float* __restrict__ tc, const float* __restri
   for (int c = 0; c < 3; ++c)
 #pragma unroll
     for (int i = 0; i < 3; ++i)
-      wc[c][i] = fma_rn(M(c * 4 + 2), TC(12 + i),
-                        fma_rn(M(c * 4 + 0), TC(6 + i), M(c * 4 + 1) * TC(9 + i))) +
-                 M(c * 4 + 3);
+      wc[c][i] = fma_rn(mr[c].z, TC(12 + i), fma_rn(mr[c].x, TC(6 + i), mr[c].y * TC(9 + i))) +
+                 mr[c].w;
   float clip[4][3];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -97,44 +102,49 @@ __global__ void setup_kernel(const float* __restrict__ tc, const float* __restri
   const float area2 = (px[1] - px[0]) * (py[2] - py[0]) - (py[1] - py[0]) * (px[2] - px[0]);
   valid = valid && (!use_screen || area2 < 0.0f);
 
-  // near-plane crossers: bbox of the part with 0 <= depth <= 1
+  // near-plane crossers: bbox of the part with 0 <= depth <= 1. Only a
+  // triangle with a corner behind the eye reads it, so the others skip its
+  // 18 divisions (warps are mostly uniform: the stream is in world Morton
+  // order).
   const float lim_x = 2.0f * (float)width + 16.0f, lim_y = 2.0f * (float)height + 16.0f;
-  float cxmin = 0.f, cymin = 0.f, cxmax = 0.f, cymax = 0.f;  // vmin accumulators
-  int n = 0;
-  auto add_cand = [&](float vx, float vy, bool ok) {
-    const float cx = ok ? tclamp(vx, -lim_x, lim_x) : kInf;
-    const float cy = ok ? tclamp(vy, -lim_y, lim_y) : kInf;
-    const float nx = cx >= kInf ? kInf : -cx;
-    const float ny = cy >= kInf ? kInf : -cy;
-    if (n == 0) {
-      cxmin = cx; cymin = cy; cxmax = nx; cymax = ny;
-    } else {
-      cxmin = tmin(cxmin, cx); cymin = tmin(cymin, cy);
-      cxmax = tmin(cxmax, nx); cymax = tmin(cymax, ny);
-    }
-    ++n;
-  };
+  float cxmin = kInf, cymin = kInf, cxmax = kInf, cymax = kInf;  // vmin accumulators
+  if (any_behind) {
+    int n = 0;
+    auto add_cand = [&](float vx, float vy, bool ok) {
+      const float cx = ok ? tclamp(vx, -lim_x, lim_x) : kInf;
+      const float cy = ok ? tclamp(vy, -lim_y, lim_y) : kInf;
+      const float nx = cx >= kInf ? kInf : -cx;
+      const float ny = cy >= kInf ? kInf : -cy;
+      if (n == 0) {
+        cxmin = cx; cymin = cy; cxmax = nx; cymax = ny;
+      } else {
+        cxmin = tmin(cxmin, cx); cymin = tmin(cymin, cy);
+        cxmax = tmin(cxmax, nx); cymax = tmin(cymax, ny);
+      }
+      ++n;
+    };
 #pragma unroll
-  for (int i = 0; i < 3; ++i) add_cand(px[i], py[i], (z[i] >= 0.0f) && (z[i] <= w[i]));
-  const int pairs[3][2] = {{0, 1}, {1, 2}, {2, 0}};
+    for (int i = 0; i < 3; ++i) add_cand(px[i], py[i], (z[i] >= 0.0f) && (z[i] <= w[i]));
+    const int pairs[3][2] = {{0, 1}, {1, 2}, {2, 0}};
 #pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    const int i = pairs[p][0], j = pairs[p][1];
+    for (int p = 0; p < 3; ++p) {
+      const int i = pairs[p][0], j = pairs[p][1];
 #pragma unroll
-    for (int near = 1; near >= 0; --near) {
-      const float fi = near ? z[i] : w[i] - z[i];
-      const float fj = near ? z[j] : w[j] - z[j];
-      const bool crossing = (fi > 0.0f) != (fj > 0.0f);
-      const float denom = fi - fj;
-      const float tt = fi / (fabsf(denom) < kTiny ? kTiny : denom);
-      const float xt = fma_rn(tt, xs[j] - xs[i], xs[i]);
-      const float yt = fma_rn(tt, ys[j] - ys[i], ys[i]);
-      const float zt = fma_rn(tt, z[j] - z[i], z[i]);
-      float wt = fma_rn(tt, w[j] - w[i], w[i]);
-      const bool other = near ? (zt <= wt) : (zt >= 0.0f);
-      const bool ok = crossing && other && (wt > kEps12);
-      wt = tmax(wt, kEps12);
-      add_cand(xt / wt, yt / wt, ok);
+      for (int near = 1; near >= 0; --near) {
+        const float fi = near ? z[i] : w[i] - z[i];
+        const float fj = near ? z[j] : w[j] - z[j];
+        const bool crossing = (fi > 0.0f) != (fj > 0.0f);
+        const float denom = fi - fj;
+        const float tt = fi / (fabsf(denom) < kTiny ? kTiny : denom);
+        const float xt = fma_rn(tt, xs[j] - xs[i], xs[i]);
+        const float yt = fma_rn(tt, ys[j] - ys[i], ys[i]);
+        const float zt = fma_rn(tt, z[j] - z[i], z[i]);
+        float wt = fma_rn(tt, w[j] - w[i], w[i]);
+        const bool other = near ? (zt <= wt) : (zt >= 0.0f);
+        const bool ok = crossing && other && (wt > kEps12);
+        wt = tmax(wt, kEps12);
+        add_cand(xt / wt, yt / wt, ok);
+      }
     }
   }
   const bool has_cand = cxmin < kInf;
@@ -208,7 +218,7 @@ __global__ void setup_kernel(const float* __restrict__ tc, const float* __restri
   }
   rows[9] = zp.a; rows[10] = zp.b; rows[11] = no_negzero(zp.c);
   rows[12] = wp.a; rows[13] = wp.b; rows[14] = no_negzero(wp.c);
-  rows[15] = v2 ? ids[k] : -1.0f;
+  rows[15] = v2 ? (ids ? ids[k] : (float)k) : -1.0f;
 #pragma unroll
   for (int e = 0; e < 3; ++e) {
     const bool tl = (er[e].a > 0.0f) || (er[e].a == 0.0f && er[e].b > 0.0f);
@@ -238,13 +248,15 @@ __global__ void setup_kernel(const float* __restrict__ tc, const float* __restri
 
 }  // namespace
 
-VKTF_EXPORT int vktf_setup_pack(const float* tc, const float* mrowsT, const float* vp,
-                                const float* ids, float* tri_data, float* bbox_rows,
-                                float* edge9, float* anchor2, uint8_t* valid, int t, int width,
-                                int height, cudaStream_t stream) {
+VKTF_EXPORT int vktf_setup_pack(const float* tc, const float* inst_rows,
+                                const int* tri_instance, const float* vp, const float* ids,
+                                float* tri_data, float* bbox_rows, float* edge9, float* anchor2,
+                                uint8_t* valid, int t, int width, int height,
+                                cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (t + threads - 1) / threads;
-  setup_kernel<<<blocks, threads, 0, stream>>>(tc, mrowsT, vp, ids, tri_data, bbox_rows, edge9,
-                                               anchor2, valid, t, width, height);
+  setup_kernel<<<blocks, threads, 0, stream>>>(
+      tc, reinterpret_cast<const float4*>(inst_rows), tri_instance, vp, ids, tri_data, bbox_rows,
+      edge9, anchor2, valid, t, width, height);
   return launch_status();
 }

@@ -7,6 +7,10 @@ Builds happen at first use, into ``vktf_tpu_torch/_build/`` (listed in
 library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and an unchanged one is reused.
 
+Each wrapper module declares its C entry points' argument types once, at
+import (``declare``); they are set on the library's functions when it is
+loaded, so a launch only calls the function.
+
 ``--fmad=false`` keeps the compiler from contracting multiply-adds on its
 own: the kernels fuse exactly where the JAX reference's XLA build does
 (``ops/fmath.py``), with explicit ``__fmaf_rn``.
@@ -45,6 +49,14 @@ class Kernel:
 
 
 _libs: dict[str, ctypes.CDLL] = {}
+# source -> {C entry point: its argument types}, set when a library loads
+_entries: dict[str, dict[str, list]] = {}
+
+
+def declare(source: str, entry: str, argtypes: list) -> None:
+    """Register the argument types of one C entry point of a source (every
+    entry returns its launch's cudaError_t as an int)."""
+    _entries.setdefault(source, {})[entry] = argtypes
 
 
 def _nvcc() -> str:
@@ -108,9 +120,16 @@ def build_log(source: str) -> str:
 
 
 def load(source: str, csrc: Path = CSRC) -> ctypes.CDLL:
-    """Load the library of one source of ``csrc``, building it first if needed."""
+    """Load the library of one source of ``csrc``, building it first if
+    needed, with the declared argument types of the entry points it has."""
     build([source], csrc)
-    return ctypes.CDLL(str(_lib_path(source, csrc)))
+    lib = ctypes.CDLL(str(_lib_path(source, csrc)))
+    for entry, argtypes in _entries.get(source, {}).items():
+        fn = getattr(lib, entry, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def library(source: str) -> ctypes.CDLL:

@@ -38,5 +38,8 @@ def fma(a, b, c):
 
 def f32(value, like: torch.Tensor) -> torch.Tensor:
     """A float32 scalar tensor on `like`'s device (keeps comparisons and
-    arithmetic against constants in float32)."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    arithmetic against constants in float32). It is filled on that device,
+    with no copy from the host, so a frame that uses it is enqueued without
+    waiting for the card; its bits are those of
+    ``torch.tensor(value, dtype=torch.float32)``."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)

@@ -17,8 +17,9 @@ taps or mixed samplers send the frame to the two-gather multi-tap or
 per-slot form, as in the JAX program. Nothing falls back to a cheaper
 form. Stages, in order:
 
-  1. scene update (cached per scene): node transforms, world lights, the
-     (16, T) per-triangle instance-matrix rows;
+  1. scene update (cached per scene and per in-place edit of its tensors):
+     node transforms, world lights, the (I, 16) instance matrices and the
+     int32 per-triangle instance index;
   2. setup kernel (``ops/setup_kernel.py``), once per frame;
   3. screen-Morton stream order (``ops/raster.stream_perm``), kept across
      frames until the camera moves past ``config.resort_threshold``;
@@ -38,13 +39,13 @@ form. Stages, in order:
      package, too);
   8. present: unpack the bytes and crop the tile padding (``ops/present.py``).
 
-On the card (NVIDIA H100 80GB HBM3 at a 700 W power limit, chip_smoke.py,
-sponza 1080p 4x MSAA, CUDA-event stage medians): the opaque frame takes
-2.8 ms; the translucent sponza at K = 8 9.5 ms, of which the two K-layer
-kernels take 1.25 + 1.13 ms and the plain-torch stages around them most of
-the rest (composite 3.3 ms, K-layer winner 1.2 ms: passes over the
-(K, 3, N) layer outputs and the (K, S, H, W) raster output, each bound by
-memory traffic). The other forms' stage times are in PERF.md.
+Nothing on the frame path waits for the card: the camera reaches it
+through pinned memory with a non-blocking copy, the clear colour is made
+once per device, constants are filled on the device (``fmath.f32``), and
+no stage reads device data on the host. So ``Scene.render_async`` returns
+once the frame is enqueued, and several frames can be in flight. Stage
+and frame times on the card, synchronized and with frames in flight:
+PERF.md.
 
 The JAX program ran the setup kernel twice (a second pass over
 Morton-permuted inputs) and split the shade into two programs; both were
@@ -83,14 +84,25 @@ def gather_world_lights(node_global, light_node, light_type, light_color):
 
 
 def scene_update(scene: RenderScene, meta: SceneMeta):
-    """The camera-independent half of the frame: (mrowsT (16, T) f32
-    per-triangle instance-matrix rows, lights (L, 8) f32)."""
+    """The camera-independent half of the frame: (inst_rows (I, 16) f32
+    row-major instance matrices, tri_instance (T,) i32, lights (L, 8) f32)."""
     node_global = propagate_transforms(scene.node_local, scene.node_parent,
                                        meta.level_slices)
     lights = gather_world_lights(node_global, scene.light_node,
                                  scene.light_type, scene.light_color)
-    mrows = node_global[scene.inst_node].reshape(-1, 16)[scene.tri_instance]
-    return mrows.T.contiguous(), lights
+    inst_rows = node_global[scene.inst_node].reshape(-1, 16).contiguous()
+    return inst_rows, scene.tri_instance.to(torch.int32), lights
+
+
+def to_device(values, dev) -> torch.Tensor:
+    """Host values as a float32 tensor on `dev`. A CUDA device gets them by
+    a non-blocking copy from a fresh pinned buffer, so the host does not
+    wait for the card (the pinned allocator reuses a buffer only once its
+    copy has completed)."""
+    host = torch.from_numpy(np.array(values, dtype=np.float32))
+    if dev.type != "cuda":
+        return host.to(dev)
+    return host.pin_memory().to(dev, non_blocking=True)
 
 
 def pixel_winner(ids, depth):
@@ -204,14 +216,20 @@ class FrameProgram:
         self._perm = None
         self._sort_vp = None
         self._centers = None
+        self._background = None
         self.timer: Optional[_StageTimer] = None
 
     def _maybe_scene_update(self, scene: RenderScene):
-        key = (scene.node_local, scene.node_parent, scene.light_node,
-               scene.light_type, scene.light_color, scene.inst_node,
-               scene.tri_instance)
+        """The scene update, rerun when a leaf it reads is replaced or edited
+        in place (each tensor's identity and version counter). The stream
+        order (``_maybe_resort``) only orders the raster's input and never
+        changes the frame, so it follows the camera alone, as in the JAX
+        program."""
+        key = [(t, t._version) for t in (
+            scene.node_local, scene.node_parent, scene.light_node, scene.light_type,
+            scene.light_color, scene.inst_node, scene.tri_instance)]
         if self._scene_state is None or any(
-                a is not b for a, b in zip(key, self._scene_key)):
+                a is not b or va != vb for (a, va), (b, vb) in zip(key, self._scene_key)):
             self._scene_state = scene_update(scene, self.meta)
             self._scene_key = key
         return self._scene_state
@@ -241,17 +259,21 @@ class FrameProgram:
                  camera_position) -> torch.Tensor:
         cfg = self.config
         dev = scene.device
-        vp = torch.as_tensor(np.asarray(view_projection, np.float32), device=dev)
-        cam = torch.as_tensor(np.asarray(camera_position, np.float32), device=dev)
+        # one staged copy: vp (4, 4) and the camera position behind it
+        staged = to_device(np.concatenate([np.ravel(view_projection),
+                                           np.ravel(camera_position)]), dev)
+        vp, cam = staged[:16].view(4, 4), staged[16:19]
         ph, pw = cfg.padded_height, cfg.padded_width
         if self._centers is None or self._centers[0].device != dev:
             self._centers = pixel_centers(ph, pw, dev)
+            self._background = to_device(cfg.clear_color[:3], dev)
+        background = self._background
 
         with self._stage("scene_update"):
-            mrowsT, lights = self._maybe_scene_update(scene)
+            inst_rows, tri_instance, lights = self._maybe_scene_update(scene)
         with self._stage("setup"):
-            setup = setup_kernel.setup_pack(scene.tri_corner, mrowsT, vp,
-                                            cfg.width, cfg.height)
+            setup = setup_kernel.setup_pack(scene.tri_corner, inst_rows, tri_instance,
+                                            vp, cfg.width, cfg.height)
         with self._stage("raster"):
             perm = self._maybe_resort(setup, view_projection)
             stream = raster.raster_stream(setup["tri_data"], setup["bbox_rows"],
@@ -261,11 +283,9 @@ class FrameProgram:
         with self._stage("shade_table"):
             table = shade_table.build_shade_table(
                 setup["edge9"], scene.tri_corner, scene.tri_static_cols,
-                setup["anchor2"], mrowsT)
+                setup["anchor2"], inst_rows, tri_instance)
         with self._stage("winner"):
             tri, frac = pixel_winner(ids, depth)
-        background = torch.tensor(cfg.clear_color[:3], dtype=torch.float32,
-                                  device=dev)
         form, pool = self.form, scene.quad_pool
         if form.attrs:
             with self._stage("attrs"):

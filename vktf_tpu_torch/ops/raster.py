@@ -70,6 +70,8 @@ KERNEL_LAYERS = _cuda.Kernel(
     "vktf_tpu/ops/raster_pallas.py:365 (_raster_kernel, K-layer sorted insertion :831-852, "
     "via rasterize_pallas, pallas_call :1201)",
 )
+_cuda.declare("raster.cu", "vktf_raster",
+              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
 
 # triangles per group: the slim flag is their AND; tri_bbox rows 4..7 hold
 # the group bbox, the TPU kernel's mid-level skip (the CUDA kernel lists
@@ -291,16 +293,9 @@ def rasterize(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
     depth = torch.empty(shape, dtype=torch.float32, device=dev)
     offsets = (ctypes.c_float * (2 * s_count))(
         *[c for xy in SAMPLE_OFFSETS[msaa_samples] for c in xy])
-    lib = _cuda.library(KERNEL.source)
-    fn = lib.vktf_raster
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
     (KERNEL if layers == 1 else KERNEL_LAYERS).launches += 1
-    _cuda.check(fn(_cuda.ptr(tri_data), _cuda.ptr(tri_bbox),
-                   _cuda.ptr(chunk_bbox), _cuda.ptr(ids), _cuda.ptr(depth),
-                   n_chunks, height, width, s_count, layers,
-                   ctypes.cast(offsets, ctypes.c_void_p),
-                   _cuda.stream_of(tri_data)),
-                "raster kernel")
+    _cuda.check(_cuda.library(KERNEL.source).vktf_raster(
+        _cuda.ptr(tri_data), _cuda.ptr(tri_bbox), _cuda.ptr(chunk_bbox), _cuda.ptr(ids),
+        _cuda.ptr(depth), n_chunks, height, width, s_count, layers,
+        ctypes.cast(offsets, ctypes.c_void_p), _cuda.stream_of(tri_data)), "raster kernel")
     return ids, depth

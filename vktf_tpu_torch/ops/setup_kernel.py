@@ -18,15 +18,24 @@ plane; 12..14 w-recip plane; 15 triangle id (-1 invalid, exact below 2^24);
 flag (per triangle here; ``ops/raster.py`` reduces it per group); 20..23
 zero. Plane constants are normalized so an exact zero is +0.0.
 
+The instance matrices come as ``inst_rows`` (I, 16) f32, row-major, with
+an int32 ``tri_instance`` (T,) naming each triangle's instance; the plain
+version gathers the (16, T) per-triangle rows from them.
+
 CUDA design (``csrc/setup.cu``): one thread per triangle, component-major
 inputs and outputs, so every load and store of a warp is one coalesced
-128-byte line. Bound on the card: bytes — 22 floats read and ~39 written
-per triangle, 64 MB at the sponza preset's 262,688 triangles (19 us at
-3.35 TB/s), against ~700 flops and ~20 IEEE divisions per triangle.
-Measured 0.081 ms per launch on an NVIDIA H100 80GB HBM3 at a 700 W power
-limit (chip_smoke.py), the plain version 11.2 ms. The JAX kernel ran twice
-per frame (original and stream order); here it runs once and the raster
-prologue permutes its columns.
+128-byte line; each thread reads its instance's matrix as three 16-byte
+loads from the (I, 16) rows (a few KB, cached, and mostly one instance per
+warp). Bound on the card: bytes — 36 bytes of corners and a 4-byte index
+read, 157 bytes written per triangle, against ~700 flops and 29 IEEE
+divisions, 18 of them in the near-plane clip, which only a triangle with a
+corner behind the eye reads and the others skip. The wrapper does no work
+beyond its checks, the output allocations and the launch: ``ids=None``
+launches with a null pointer and the kernel writes the triangle's own
+index, and ``valid`` is a bool view of the kernel's byte output. Times
+(the wrapper and the bare launch): PERF.md.
+The JAX kernel ran twice per frame (original and stream order); here it
+runs once and the raster prologue permutes its columns.
 """
 
 from __future__ import annotations
@@ -45,20 +54,28 @@ KERNEL = _cuda.Kernel(
     "setup", "setup.cu",
     "vktf_tpu/ops/setup_kernel.py:109 (_kernel via setup_pack_kernel, pallas_call :178)",
 )
+_cuda.declare("setup.cu", "vktf_setup_pack",
+              [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _no_negzero(c):
     return torch.where(c == 0.0, torch.zeros_like(c), c)
 
 
-def setup_pack_plain(tri_corner, mrowsT, view_projection, width: int,
+def instance_rowsT(inst_rows, tri_instance):
+    """The (16, T) per-triangle instance-matrix rows the plain versions
+    read: inst_rows (I, 16) gathered by tri_instance (T,)."""
+    return inst_rows[tri_instance.long()].T
+
+
+def setup_pack_plain(tri_corner, inst_rows, tri_instance, view_projection, width: int,
                      height: int, ids=None) -> dict:
     """Plain-torch version: the same math, op by op."""
     t = tri_corner.shape[1]
     if ids is None:
         ids = torch.arange(t, dtype=torch.float32, device=tri_corner.device)
     vp = view_projection.to(torch.float32)
-    x, y, z, w = clip_corners(tri_corner, mrowsT, vp)
+    x, y, z, w = clip_corners(tri_corner, instance_rowsT(inst_rows, tri_instance), vp)
     flat = setup_from_corners(x, y, z, w, width, height)
     b0, b1, b2, b3 = flat["bbox_cols"]
     valid = flat["valid"] & (b2 > b0) & (b3 > b1)
@@ -96,39 +113,38 @@ def setup_pack_plain(tri_corner, mrowsT, view_projection, width: int,
     )
 
 
-def setup_pack(tri_corner, mrowsT, view_projection, width: int, height: int,
-               ids=None) -> dict:
-    """Packed setup dict (module docstring). CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+def setup_pack(tri_corner, inst_rows, tri_instance, view_projection, width: int,
+               height: int, ids=None) -> dict:
+    """Packed setup dict (module docstring). tri_corner (36, T) f32,
+    inst_rows (I, 16) f32, tri_instance (T,) i32 in [0, I), view_projection
+    (4, 4) f32, ids (T,) f32 or None for the triangles' own indices. CPU
+    tensors take the plain version; CUDA tensors launch the kernel, with
+    every operand already on the card."""
     if not tri_corner.is_cuda:
-        return setup_pack_plain(tri_corner, mrowsT, view_projection, width,
-                                height, ids)
+        return setup_pack_plain(tri_corner, inst_rows, tri_instance, view_projection,
+                                width, height, ids)
     t = tri_corner.shape[1]
     if t >= 1 << 24:
         raise ValueError("triangle ids ride f32 rows: exact only below 2^24")
     dev = tri_corner.device
     _cuda.require(tri_corner, "tri_corner", torch.float32, (36, t))
-    _cuda.require(mrowsT, "mrowsT", torch.float32, (16, t), dev)
-    vp = view_projection.to(device=dev, dtype=torch.float32).contiguous()
-    _cuda.require(vp, "view_projection", torch.float32, (4, 4), dev)
-    if ids is None:
-        ids = torch.arange(t, dtype=torch.float32, device=dev)
-    _cuda.require(ids, "ids", torch.float32, (t,), dev)
+    _cuda.require(inst_rows, "inst_rows", torch.float32, (inst_rows.shape[0], 16), dev)
+    _cuda.require_aligned(inst_rows, "inst_rows")
+    _cuda.require(tri_instance, "tri_instance", torch.int32, (t,), dev)
+    _cuda.require(view_projection, "view_projection", torch.float32, (4, 4), dev)
+    if ids is not None:
+        _cuda.require(ids, "ids", torch.float32, (t,), dev)
     tri_data = torch.empty((TRI_ROWS, t), dtype=torch.float32, device=dev)
     bbox_rows = torch.empty((4, t), dtype=torch.float32, device=dev)
     edge9 = torch.empty((9, t), dtype=torch.float32, device=dev)
     anchor2 = torch.empty((2, t), dtype=torch.float32, device=dev)
     valid = torch.empty((t,), dtype=torch.uint8, device=dev)
-    lib = _cuda.library(KERNEL.source)
-    fn = lib.vktf_setup_pack
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     if t:
         KERNEL.launches += 1
-        _cuda.check(fn(_cuda.ptr(tri_corner), _cuda.ptr(mrowsT), _cuda.ptr(vp),
-                       _cuda.ptr(ids), _cuda.ptr(tri_data),
-                       _cuda.ptr(bbox_rows), _cuda.ptr(edge9),
-                       _cuda.ptr(anchor2), _cuda.ptr(valid), t, width, height,
-                       _cuda.stream_of(tri_corner)), "setup kernel")
+        _cuda.check(_cuda.library(KERNEL.source).vktf_setup_pack(
+            _cuda.ptr(tri_corner), _cuda.ptr(inst_rows), _cuda.ptr(tri_instance),
+            _cuda.ptr(view_projection), None if ids is None else _cuda.ptr(ids),
+            _cuda.ptr(tri_data), _cuda.ptr(bbox_rows), _cuda.ptr(edge9), _cuda.ptr(anchor2),
+            _cuda.ptr(valid), t, width, height, _cuda.stream_of(tri_corner)), "setup kernel")
     return dict(tri_data=tri_data, bbox_rows=bbox_rows, edge9=edge9,
-                anchor2=anchor2, valid=valid.bool())
+                anchor2=anchor2, valid=valid.view(torch.bool))

@@ -167,6 +167,11 @@ KERNEL_ATTRS_LAYER = _cuda.Kernel(
     "shade_attrs_layer", "shade.cu",
     "vktf_tpu/ops/shade_kernel.py:341 (_attrs_layer_kernel via shade_final_attrs_chunk, pallas_call :646)",
 )
+_I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+_cuda.declare("shade.cu", "vktf_shade_resolve", [_I] * 2 + [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P])
+_cuda.declare("shade.cu", "vktf_shade_layer", [_I] * 2 + [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P])
+_cuda.declare("shade.cu", "vktf_shade_attrs_resolve", [_P] * 8 + [_I] * 3 + [_P])
+_cuda.declare("shade.cu", "vktf_shade_attrs_layer", [_P] * 8 + [_I] * 4 + [_P])
 # (texels, taps > 1) -> (resolve record, layer record): one record for each
 # compiled instantiation of the CUDA template
 _COLS_KERNELS = {
@@ -700,13 +705,10 @@ def _params(camera_position, lights, background, dev):
     return params
 
 
-def _launch(kernel, entry: str, argtypes, args, what: str) -> None:
+def _launch(kernel, entry: str, args, what: str) -> None:
     """Count and launch one kernel through its C entry point."""
-    fn = getattr(_cuda.library(kernel.source), entry)
-    fn.argtypes = argtypes + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     kernel.launches += 1
-    _cuda.check(fn(*args), what)
+    _cuda.check(getattr(_cuda.library(kernel.source), entry)(*args), what)
 
 
 def _aniso_args(max_anisotropy: float):
@@ -737,8 +739,6 @@ def shade_resolve(tri, sx, sy, frac, table, pool, camera_position, lights,
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
         _launch(_COLS_KERNELS[(texels, taps > 1)][0], "vktf_shade_resolve",
-                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                + [ctypes.c_float] * 2,
                 (TEXELS.index(texels), taps, _cuda.ptr(tri), _cuda.ptr(sx), _cuda.ptr(sy),
                  _cuda.ptr(frac), _cuda.ptr(table), _cuda.ptr(pool), _cuda.ptr(params),
                  _cuda.ptr(out), n, lights.shape[0], pool.shape[0],
@@ -769,8 +769,6 @@ def shade_layer(tri, sx, sy, table, pool, camera_position, lights,
     alpha = torch.empty(tri.shape, dtype=torch.float32, device=dev)
     if n:
         _launch(_COLS_KERNELS[(texels, taps > 1)][1], "vktf_shade_layer",
-                [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                + [ctypes.c_float] * 2,
                 (TEXELS.index(texels), taps, _cuda.ptr(tri), _cuda.ptr(sx), _cuda.ptr(sy),
                  _cuda.ptr(table), _cuda.ptr(pool), _cuda.ptr(params), _cuda.ptr(rgb),
                  _cuda.ptr(alpha), n, layers, lights.shape[0], pool.shape[0],
@@ -798,7 +796,6 @@ def shade_attrs_resolve(attrs, r0, r1, tri, frac, pool, camera_position, lights,
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
         _launch(KERNEL_ATTRS, "vktf_shade_attrs_resolve",
-                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3,
                 (_cuda.ptr(attrs), _cuda.ptr(r0), _cuda.ptr(r1), _cuda.ptr(tri),
                  _cuda.ptr(frac), _cuda.ptr(pool), _cuda.ptr(params), _cuda.ptr(out), n,
                  lights.shape[0], pool.shape[0], _cuda.stream_of(tri)),
@@ -823,7 +820,6 @@ def shade_attrs_layer(attrs, r0, r1, tri, pool, camera_position, lights):
     alpha = torch.empty(tri.shape, dtype=torch.float32, device=dev)
     if n:
         _launch(KERNEL_ATTRS_LAYER, "vktf_shade_attrs_layer",
-                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4,
                 (_cuda.ptr(attrs), _cuda.ptr(r0), _cuda.ptr(r1), _cuda.ptr(tri),
                  _cuda.ptr(pool), _cuda.ptr(params), _cuda.ptr(rgb), _cuda.ptr(alpha), n,
                  layers, lights.shape[0], pool.shape[0], _cuda.stream_of(tri)),

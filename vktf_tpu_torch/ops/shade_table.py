@@ -15,14 +15,21 @@ Column layout (same as the JAX package):
   46 pool base row   47 level-0 width   48 levels   49..51 sampler codes
   52 alpha mode   53 alpha cutoff   54..55 plane anchor (x, y)   56..63 0
 
-CUDA design (``csrc/shade_table.cu``): one thread per triangle; reads are
-component-major and coalesced, each thread writes its own 256-byte row.
-Bound on the card: bytes — 74 floats in and 64 out per triangle, 145 MB
-at the sponza preset's 262,688 triangles (43 us at 3.35 TB/s), against
-~250 flops. Measured 0.33 ms per launch on an NVIDIA H100 80GB HBM3 at a
-700 W power limit (chip_smoke.py), the plain version 6.7 ms: the
-row-per-thread stores are strided across the warp, which a later PR can
-coalesce through shared memory.
+The instance matrices come as ``inst_rows`` (I, 16) f32 with an int32
+``tri_instance`` (T,), as in ``ops/setup_kernel.py``.
+
+CUDA design (``csrc/shade_table.cu``): bound on the card by bytes — 62
+input floats and a 4-byte index read, 64 floats written per triangle,
+against ~600 flops. A block owns 128 consecutive triangles, one thread
+each; their rows are one contiguous 32 KB span of the table. Each thread
+reads its component-major inputs (coalesced across the warp) and its
+instance's matrix (three 16-byte loads from the small (I, 16) rows), and
+writes each column into a shared-memory tile as soon as it has it, so the
+64 outputs never sit in registers together. The tile is XOR-swizzled
+(column ^ (row & 31)), so neither the column writes of a warp (32 rows, one
+column) nor the 16-byte row reads conflict on banks. After one barrier the
+block stores its span with 16-byte stores by consecutive threads, each
+table sector written whole by one instruction. Times: PERF.md.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 
 from vktf_tpu_torch.ops import _cuda
 from vktf_tpu_torch.ops.fmath import fma
+from vktf_tpu_torch.ops.setup_kernel import instance_rowsT
 from vktf_tpu_torch.ops.vertex import world_corners
 
 ROW = 64
@@ -44,12 +52,16 @@ KERNEL = _cuda.Kernel(
     "shade_table", "shade_table.cu",
     "vktf_tpu/ops/shade_table.py:128 (_table_build_kernel via build_shade_table_pallas, pallas_call :232)",
 )
+_cuda.declare("shade_table.cu", "vktf_shade_table",
+              [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p])
 
 
-def build_shade_table_plain(edge9, tri_corner, static_cols, anchor2, mrowsT):
+def build_shade_table_plain(edge9, tri_corner, static_cols, anchor2, inst_rows,
+                            tri_instance):
     """Plain-torch version: (T, 64) f32."""
     e = [[edge9[i * 3 + k] for k in range(3)] for i in range(3)]
     tc = tri_corner
+    mrowsT = instance_rowsT(inst_rows, tri_instance)
     wp = world_corners(mrowsT, tc, 6, translate=True)
     wn = world_corners(mrowsT, tc, 15, translate=False)
     wt = world_corners(mrowsT, tc, 24, translate=False)
@@ -69,28 +81,27 @@ def build_shade_table_plain(edge9, tri_corner, static_cols, anchor2, mrowsT):
     return torch.stack(cols, dim=1)
 
 
-def build_shade_table(edge9, tri_corner, static_cols, anchor2, mrowsT):
-    """(T, 64) f32 shade table. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+def build_shade_table(edge9, tri_corner, static_cols, anchor2, inst_rows, tri_instance):
+    """(T, 64) f32 shade table. inst_rows (I, 16) f32, tri_instance (T,)
+    i32 in [0, I). CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
     if not edge9.is_cuda:
-        return build_shade_table_plain(edge9, tri_corner, static_cols, anchor2,
-                                       mrowsT)
+        return build_shade_table_plain(edge9, tri_corner, static_cols, anchor2, inst_rows,
+                                       tri_instance)
     t = edge9.shape[1]
     dev = edge9.device
     _cuda.require(edge9, "edge9", torch.float32, (9, t))
     _cuda.require(tri_corner, "tri_corner", torch.float32, (36, t), dev)
     _cuda.require(static_cols, "static_cols", torch.float32, (15, t), dev)
     _cuda.require(anchor2, "anchor2", torch.float32, (2, t), dev)
-    _cuda.require(mrowsT, "mrowsT", torch.float32, (16, t), dev)
+    _cuda.require(inst_rows, "inst_rows", torch.float32, (inst_rows.shape[0], 16), dev)
+    _cuda.require_aligned(inst_rows, "inst_rows")
+    _cuda.require(tri_instance, "tri_instance", torch.int32, (t,), dev)
     table = torch.empty((t, ROW), dtype=torch.float32, device=dev)
-    lib = _cuda.library(KERNEL.source)
-    fn = lib.vktf_shade_table
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     if t:
         KERNEL.launches += 1
-        _cuda.check(fn(_cuda.ptr(edge9), _cuda.ptr(tri_corner),
-                       _cuda.ptr(static_cols), _cuda.ptr(anchor2),
-                       _cuda.ptr(mrowsT), _cuda.ptr(table), t,
-                       _cuda.stream_of(edge9)), "shade-table kernel")
+        _cuda.check(_cuda.library(KERNEL.source).vktf_shade_table(
+            _cuda.ptr(edge9), _cuda.ptr(tri_corner), _cuda.ptr(static_cols),
+            _cuda.ptr(anchor2), _cuda.ptr(inst_rows), _cuda.ptr(tri_instance),
+            _cuda.ptr(table), t, _cuda.stream_of(edge9)), "shade-table kernel")
     return table

@@ -67,7 +67,8 @@ class Scene:
 
     def render_async(self) -> torch.Tensor:
         """Enqueue one frame; returns the (3, H, W) uint8 device tensor
-        without waiting for the device."""
+        without waiting for the device (nothing on the frame path
+        synchronizes with the card, so several frames can be in flight)."""
         return self.frame_program(self.render_scene,
                                   self.camera.view_projection_transform,
                                   self.camera.position)
