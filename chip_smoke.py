@@ -8,6 +8,9 @@ Needs one CUDA card and nvcc. In order, it:
   2. builds the CUDA sources of vktf_tpu_torch/csrc (one nvcc each, in
      parallel; eighteen kernel records) and times the build;
   3. builds the sponza preset with the port's numpy builder and uploads it;
+     exports it (RGBA8 KTX2 under ZLIB, lossless) and the box preset
+     (Basis ETC1S) to glTF files under vktf_tpu_torch/_build/assets/ for
+     phase 10;
   4. the opaque path (K = 1): renders frames through the port's Scene
      (render_async / render_still) with every kernel launch counter set to
      0 just before and read just after, printing per-stage CUDA-event
@@ -56,7 +59,17 @@ Needs one CUDA card and nvcc. In order, it:
           and the translucent mixed sponza (shade_layer_per_slot_taps);
   9. renders small frames of every path on the card and on the CPU (plain
      versions only) and compares them;
- 10. checks the frames (shape, dtype, >= 50% of pixels lit), saves them as
+ 10. the viewer, from files on disk: Engine.load of both exported presets
+     (the load split: parse, texture decode, flatten, upload); the loaded
+     sponza's still at CAMERA must equal phase 4's in-memory frame bit for
+     bit; Engine.render's first call must return while a sleep kernel holds
+     the stream; game.main at the phase's size, 4x MSAA, headless, for a
+     32-frame fly-through with the counters zeroed just before and read
+     just after (setup, raster, shade table and shade once per presented
+     frame, no other kernel) and its FrameTimer p50 / p99 / FPS beside
+     phase 4's render_async frame with 4 in flight; two frames dumped by
+     --frame-dir (game.start) must decode to the presented frames;
+ 11. checks the frames (shape, dtype, >= 50% of pixels lit), saves them as
      .npy in the build directory (vktf_tpu_torch/_build/, not committed),
      and prints the kernels line, the card line and, last,
      {"ok": true, "device": {...}}.
@@ -71,9 +84,12 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import shutil
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -337,12 +353,176 @@ def frame_stages(scn) -> dict:
                 setup=setup, stream=stream, table=table, tri=tri, frac=frac)
 
 
+def read_png(path) -> np.ndarray:
+    """An 8-bit RGBA PNG as the port's window writes it (filter 0 rows,
+    window.write_png), decoded with zlib."""
+    blob = path.read_bytes()
+    pos, idat, size = 8, b"", None
+    while pos < len(blob):
+        length, kind = struct.unpack(">I4s", blob[pos:pos + 8])
+        if kind == b"IHDR":
+            size = struct.unpack(">II", blob[pos + 8:pos + 16])
+        elif kind == b"IDAT":
+            idat += blob[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    width, height = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(height, 1 + 4 * width)
+    require(bool((rows[:, 0] == 0).all()), f"{path.name}: unfiltered rows")
+    return rows[:, 1:].reshape(height, width, 4)
+
+
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """float32 distance in units in the last place."""
     def ordered(x):
         i = x.contiguous().view(torch.int32).to(torch.int64)
         return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
     return (ordered(a) - ordered(b)).abs()
+
+
+def viewer_breakdown(engine, scene, frames: int = 32) -> None:
+    """Where a viewer frame's host time goes: `frames` Engine.render calls
+    at a fixed camera, timed by the host clock, then again under
+    torch.profiler, whose spans split each frame into the dispatch
+    (render_async, the pinned copy and its event) and the window's present
+    (the interleaved RGBA copy); the rest of a frame is the wait on the
+    oldest frame's event. Also the card's busy share in the profiled
+    window (the kernels' device time over the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.wait_idle()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        engine.render(scene)
+    engine.wait_idle()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / frames
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            engine.render(scene)
+        engine.wait_idle()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    spans = {e.key: e.cpu_time_total / 1e3 / frames for e in events
+             if e.key in ("engine.dispatch", "engine.present")}
+    device_ms = sum(getattr(e, "self_device_time_total", None) or
+                    getattr(e, "self_cuda_time_total", 0.0) for e in events) / 1e3
+    log(f"[viewer] Engine.render at a fixed camera, {frames} frames: {plain_ms:.4f} ms per frame "
+        f"(host clock); profiled {wall_ms / frames:.4f} ms per frame, of which dispatch "
+        f"{spans.get('engine.dispatch', float('nan')):.4f} ms and present "
+        f"{spans.get('engine.present', float('nan')):.4f} ms (profiler spans, host); card busy "
+        f"{device_ms / wall_ms:.4f} of the profiled wall time ("
+        + ("not measured: no device time recorded" if device_ms == 0 else
+           f"{device_ms / frames:.4f} ms of kernels and copies per frame") + ")")
+
+
+def viewer_phase(dev, config, camera, meta, still, sponza_files, box_files, asset_dir,
+                 kernels, flight_ms, export_s, viewer_log) -> None:
+    """Phase 10: the viewer from files on disk (module docstring). `still`
+    is the in-memory preset's frame at `camera`; `flight_ms` its
+    render_async frame time with FRAMES_IN_FLIGHT in flight."""
+    from vktf_tpu_torch import engine as engine_mod
+    from vktf_tpu_torch import game
+    from vktf_tpu_torch.ops import _cuda
+    from vktf_tpu_torch.window import ScriptedInput, Window
+
+    width, height = config.width, config.height
+    clear = (np.asarray(config.clear_color[:3]) * 255 + 0.5).astype(np.uint8)
+    export_sponza_s, export_box_s = export_s
+
+    t_phase = time.perf_counter()
+    on_disk = sum(f.stat().st_size for f in asset_dir.rglob("*") if f.is_file())
+    log(f"[viewer] export (host s): sponza, RGBA8 KTX2 under ZLIB {export_sponza_s:.3f}; box, "
+        f"Basis ETC1S {export_box_s:.3f}; {len(list(asset_dir.rglob('*.ktx2')))} .ktx2 files, "
+        f"{on_disk / 1e6:.1f} MB on disk")
+    engine = engine_mod.Engine(Window(width=width, height=height), config, viewer_log, device=dev)
+    loaded = engine.load(sponza_files)
+    load_s = dict(engine.load_seconds)
+    log("[viewer] Engine.load of the sponza files (host s, upload ends in a synchronize):",
+        json.dumps({k: round(v, 4) for k, v in load_s.items()}),
+        f"total {sum(load_s.values()):.3f}")
+    require(loaded.meta == meta, "the loaded sponza has the in-memory preset's shape")
+    loaded.camera = camera
+    require(np.array_equal(loaded.render_still(), still),
+            "the sponza loaded from files renders the in-memory preset's frame bit for bit")
+    log("[viewer] loaded sponza at CAMERA == in-memory preset frame: bit-equal")
+    box = engine.load(box_files)
+    require(box.light_count == 1 and box.meta.num_triangles == 12, "the box file loads")
+    box.render_still()
+    del box
+    stream = torch.cuda.current_stream(dev)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    engine.render(loaded)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    busy = not stream.query()
+    engine.wait_idle()
+    log(f"[viewer] Engine.render's first call returned after {host_ms:.3f} ms of host time; "
+        f"stream still busy: {busy}")
+    require(busy, "Engine.render returns while the card is busy")
+    require(np.array_equal(np.moveaxis(engine.window.last_frame[..., :3], -1, 0), still),
+            "Engine.render presents the synchronized frame")
+    viewer_breakdown(engine, loaded)
+    del loaded, engine
+
+    viewer_stats = {}
+    wait_idle = engine_mod.Engine.wait_idle
+
+    def recording_wait_idle(self):
+        wait_idle(self)
+        viewer_stats.update(self.frame_timer.summary(), load=dict(self.load_seconds))
+
+    engine_mod.Engine.wait_idle = recording_wait_idle
+    try:
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        rc = game.main([*map(str, sponza_files), "--width", str(width), "--height",
+                        str(height), "--msaa", "4", "--frames", "32", "--display", "off"])
+        main_s = time.perf_counter() - t0
+        viewer_launches = {k.name: k.launches for k in kernels}
+    finally:
+        engine_mod.Engine.wait_idle = wait_idle
+    require(rc == 0, "game.main exits 0")
+    n_frames = viewer_stats["frames"]
+    log(f"[viewer] game.main, {width}x{height} 4x MSAA, 32-frame fly-through: {n_frames} frames "
+        f"presented in {main_s:.3f} s of host time (load included); launches in the path:",
+        json.dumps(viewer_launches))
+    require(n_frames == 33, "the fly-through presents 33 frames")
+    require(all(viewer_launches[k.name] == n_frames for k in kernels[:4])
+            and not any(viewer_launches[k.name] for k in kernels[4:]),
+            "setup, raster, shade table and shade ran once per presented frame, nothing else")
+    log("[viewer] game.main load (host s):",
+        json.dumps({k: round(v, 4) for k, v in viewer_stats["load"].items()}))
+    log(f"[viewer] FrameTimer over {n_frames} frames: p50 {viewer_stats['frame_ms_p50']:.4f} ms, "
+        f"p99 {viewer_stats['frame_ms_p99']:.4f} ms, mean {viewer_stats['frame_ms_mean']:.4f} ms, "
+        f"{viewer_stats['fps']:.2f} FPS; Scene.render_async with {FRAMES_IN_FLIGHT} frames in "
+        f"flight (phase 4): {flight_ms:.4f} ms per frame")
+
+    presented = []
+    present = Window.present
+
+    def recording_present(self, frame):
+        present(self, frame)
+        presented.append(self.last_frame.copy())
+
+    dump_dir = _cuda.BUILD_DIR / "viewer_frames"
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    Window.present = recording_present
+    try:
+        game.start([str(f) for f in sponza_files], width, height, config,
+                   script=ScriptedInput([None]), frame_dir=dump_dir, display=None)
+    finally:
+        Window.present = present
+    pngs = sorted(dump_dir.glob("frame_*.png"))
+    require(len(pngs) == len(presented) == 2, "two frames dumped")
+    for png, frame in zip(pngs, presented):
+        require(np.array_equal(read_png(png), frame), f"{png.name} decodes to its frame")
+    lit = float((presented[-1][..., :3] != clear).any(axis=-1).mean())
+    log(f"[viewer] --frame-dir: {len(pngs)} PNGs decode to the presented frames; last frame "
+        f"lit at {lit:.4f} of pixels")
+    require(lit >= 0.5, "the viewer's frame is lit")
+    log(f"[viewer] phase time: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -357,7 +537,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.loaders.ktx import SUPERCOMPRESSION_ZLIB
+    from vktf_tpu_torch.log import Log
     from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
+    from vktf_tpu_torch.models.export import export_asset, export_preset
     from vktf_tpu_torch.models.scenes import (SAMPLER_PRESETS, build_preset, set_blend,
                                               set_samplers, sponza_like_asset)
     from vktf_tpu_torch.ops import (_cuda, pipeline, present, raster, setup_kernel,
@@ -396,6 +579,17 @@ def main() -> int:
     camera = Camera(*CAMERA, ViewFrustumParams(np.radians(45.0), width / height,
                                                0.1, 1.0e6))
     host_s = time.perf_counter() - t0
+    # the viewer's files (phase 10), written before any path edits the assets
+    viewer_log = Log(out_stream=sys.stdout, err_stream=sys.stderr)
+    asset_dir = _cuda.BUILD_DIR / "assets"
+    shutil.rmtree(asset_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    sponza_files = [export_asset(a, asset_dir / "sponza", "rgba", viewer_log,
+                                 SUPERCOMPRESSION_ZLIB) for a in assets]
+    export_sponza_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    box_files = export_preset("box", asset_dir / "box", "basis", viewer_log)
+    export_box_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     scene = Scene(assets, config, camera=camera, device=dev)
     torch.cuda.synchronize()
@@ -406,6 +600,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     ph, pw = config.padded_height, config.padded_width
     clear = (np.asarray(config.clear_color[:3]) * 255 + 0.5).astype(np.uint8)
+
+    flight_by_path = {}
 
     def drive(scn, tag: str):
         """One path through Scene: counters zeroed just before, read just
@@ -437,6 +633,7 @@ def main() -> int:
             pending.append(done)
         torch.cuda.synchronize()
         flight_ms = (time.perf_counter() - t0) * 1e3 / n_flight
+        flight_by_path[tag] = flight_ms
         still = scn.render_still()
         launches = {k.name: k.launches for k in kernels}
         log(f"[{tag}] launches in the path:", json.dumps(launches))
@@ -929,6 +1126,10 @@ def main() -> int:
             f"card vs CPU plain: max diff {int(fd.max())}, off at {float((fd > 0).mean()):.5f} "
             f"of pixels (tolerance: 1 on {FRAME_MISMATCH})")
         require(fd.max() <= 1 and (fd > 0).mean() <= FRAME_MISMATCH, f"small {tag} frame")
+
+    # ---- 10. the viewer: glTF files on disk -> Engine -> game.main ---------
+    viewer_phase(dev, config, camera, meta, still, sponza_files, box_files, asset_dir,
+                 kernels, flight_by_path["opaque"], (export_sponza_s, export_box_s), viewer_log)
 
     log(json.dumps({"kernels": records}))
     log(card)

@@ -18,7 +18,10 @@ chunks overlap a block with few touching triangles, chunks whose triangles
 all touch one block (full compacted lists), and a 300-deep equal-depth
 stack shuffled across chunks; shade tables of random rows at 1, 129 and
 896 triangles and over 1,000 instances; setup with and without an id row;
-frames enqueued behind a sleeping stream. Tolerance: bit-equal (the
+frames enqueued behind a sleeping stream, through Scene and through
+Engine.render; the Engine's pinned host ring over a moving camera; the
+viewer (game.main) on a small file written by the port's exporter, on the
+card against the CPU (chip_smoke.py's FRAME_MISMATCH). Tolerance: bit-equal (the
 kernels run the plain versions' operations in the same order, with fused
 multiply-adds at the same places and the same CUDA math library).
 """
@@ -559,3 +562,117 @@ def test_raster_equal_depth_stack_across_chunks(dev, msaa):
                                              perm=rng.permutation(t_pad))
     assert (ids[:, :, 10, 20] // 2 == torch.arange(8, device=dev)[:, None]).all()
     assert bool((depth[:, :, 10, 20] == depth[0, 0, 10, 20]).all())
+
+
+class _FixedDeltaTime:
+    def update(self) -> float:
+        return 1.0 / 30.0
+
+
+def _quiet_log():
+    import io
+
+    from vktf_tpu_torch.log import Log
+
+    return Log(io.StringIO(), io.StringIO())
+
+
+def _small_engine(device, window=None):
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.engine import Engine
+    from vktf_tpu_torch.scene.scene import Scene
+    from vktf_tpu_torch.window import Window
+
+    config = RenderConfig(width=tp.WIDTH, height=tp.HEIGHT, msaa_samples=4)
+    window = window or Window(width=tp.WIDTH, height=tp.HEIGHT)
+    engine = Engine(window, config, _quiet_log(), device=device)
+    scene = Scene(tp.torch_assets("sponza_small"), config, _quiet_log(),
+                  camera=tp.port_camera(), device=device)
+    return engine, scene, window
+
+
+def test_engine_render_returns_while_the_stream_is_busy(dev):
+    """Engine.render's first call (frame, pinned copy, event) returns while
+    a ~0.1 s sleep kernel holds the stream, and the frame it presents later
+    is the synchronized frame."""
+    engine, scene, window = _small_engine(dev)
+    want = scene.render_still()  # builds the kernels and the scene state
+    stream = torch.cuda.current_stream(dev)
+    torch.cuda._sleep(200_000_000)
+    engine.render(scene)
+    busy = not stream.query()
+    assert window.last_frame is None
+    engine.wait_idle()
+    assert busy, "Engine.render waited for the card"
+    np.testing.assert_array_equal(np.moveaxis(window.last_frame[..., :3], -1, 0), want)
+
+
+def test_engine_pinned_ring_is_not_reused_early(dev):
+    """Over 12 frames of a moving camera, each presented frame equals that
+    camera's frame rendered alone: no pinned buffer is overwritten before
+    the window has consumed its frame."""
+    engine, scene, window = _small_engine(dev)
+    presented = []
+    present = window.present
+
+    def record(frame):
+        present(frame)
+        presented.append(window.last_frame.copy())
+
+    window.present = record
+    for i in range(12):
+        scene.camera.translate((0.15 * (i % 3), 0.0, -0.2))
+        scene.camera.rotate(0.0, 0.03)
+        engine.render(scene)
+    engine.wait_idle()
+    assert len(presented) == 12
+    alone = []
+    camera = tp.port_camera()
+    for i in range(12):
+        camera.translate((0.15 * (i % 3), 0.0, -0.2))
+        camera.rotate(0.0, 0.03)
+        scene.camera = camera
+        alone.append(scene.render_still())
+    assert len({f.tobytes() for f in alone}) == 12
+    for got, want in zip(presented, alone):
+        np.testing.assert_array_equal(np.moveaxis(got[..., :3], -1, 0), want)
+
+
+@pytest.mark.parametrize("msaa", [1, 4])
+def test_game_main_on_the_card_matches_the_cpu(dev, msaa, tmp_path, monkeypatch):
+    """The viewer on a textured box written by the port's own writer (a
+    ZLIB KTX2 texture): the card's frames against the CPU's plain versions,
+    within chip_smoke.py's FRAME_MISMATCH (one u8 step on 0.5% of pixels;
+    chip_smoke.read_png decodes the dumps: the card's machine has no PIL)."""
+    import vktf_tpu_torch.engine
+    from chip_smoke import FRAME_MISMATCH, read_png
+    from vktf_tpu_torch.game import main
+    from vktf_tpu_torch.loaders.images import generate_mips
+    from vktf_tpu_torch.loaders.ktx import SUPERCOMPRESSION_ZLIB, write_ktx2
+    from vktf_tpu_torch.models.gltf_writer import GltfWriter
+    from vktf_tpu_torch.models.primitives import box_mesh
+
+    rgba = np.random.default_rng(3).integers(0, 256, (16, 16, 4), dtype=np.uint8)
+    rgba[..., 3] = 255
+    write_ktx2(tmp_path / "base.ktx2", generate_mips(rgba, True), True, SUPERCOMPRESSION_ZLIB)
+    w = GltfWriter()
+    texture = w.add_texture(w.add_image_uri("base.ktx2"), w.add_sampler())
+    mesh = w.add_mesh(box_mesh(), material=w.add_material(base_color_texture=texture,
+                                                          roughness_factor=0.6))
+    w.add_scene([w.add_node(mesh=mesh, translation=(3, 1, 0), rotation=(0, 0.38, 0, 0.92)),
+                 w.add_node(light=w.add_light(type="directional"),
+                            rotation=(-0.38, 0, 0, 0.92))])
+    path = str(w.write(tmp_path / "box.gltf"))
+    monkeypatch.setattr(vktf_tpu_torch.engine, "DeltaTime", _FixedDeltaTime)
+    args = [path, "--width", "96", "--height", "64", "--msaa", str(msaa), "--frames", "6",
+            "--display", "off"]
+    assert main(args + ["--frame-dir", str(tmp_path / "card")]) == 0
+    assert main(args + ["--frame-dir", str(tmp_path / "cpu")], device="cpu") == 0
+    got = sorted((tmp_path / "card").glob("frame_*.png"))
+    want = sorted((tmp_path / "cpu").glob("frame_*.png"))
+    assert [p.name for p in got] == [p.name for p in want] and len(got) == 7
+    for g, c in zip(got, want):
+        a, b = read_png(g).astype(np.int16), read_png(c).astype(np.int16)
+        diff = np.abs(a - b).max(axis=-1)
+        assert diff.max() <= 1 and (diff > 0).mean() <= FRAME_MISMATCH, g.name
+        assert (a[..., :3].max(axis=-1) > 0).mean() > 0.05

@@ -23,7 +23,7 @@ the sRGB encode pass through the composite).
 """
 
 import functools
-import logging
+import io
 import pathlib
 
 import numpy as np
@@ -177,11 +177,12 @@ def _port_stack_asset(n_quads=9, dz=0.05):
                  default_scene=0)
 
 
-def test_nine_deep_stack_clamps_to_eight_and_matches_jax(tmp_path, caplog):
+def test_nine_deep_stack_clamps_to_eight_and_matches_jax(tmp_path):
     from helpers import default_camera
     from vktf_tpu.config import RenderConfig as JConfig
     from vktf_tpu.ops.pipeline import make_frame_fn
     from vktf_tpu.scene.flatten import flatten_assets as jax_flatten
+    from vktf_tpu_torch.log import Log
     from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
     from vktf_tpu_torch.scene.scene import Scene
 
@@ -197,13 +198,13 @@ def test_nine_deep_stack_clamps_to_eight_and_matches_jax(tmp_path, caplog):
 
     camera = Camera(np.asarray(jcam.position), (0.0, -0.2, -1.0),
                     ViewFrustumParams(np.radians(45.0), width / height, 0.1, 100.0))
-    with caplog.at_level(logging.WARNING, logger="vktf_tpu_torch.scene.flatten"):
-        scene = Scene([_port_stack_asset()], _port_config(
-            width=width, height=height, msaa_samples=1, tile_shape=(32, 64)),
-            camera=camera, device="cpu")
+    warnings = io.StringIO()
+    scene = Scene([_port_stack_asset()], _port_config(
+        width=width, height=height, msaa_samples=1, tile_shape=(32, 64)),
+        Log(io.StringIO(), warnings), camera=camera, device="cpu")
     assert jmeta.peel_layers == scene.meta.peel_layers == 8
     assert scene.frame_program.layers == 8
-    assert "8-layer depth peel" in caplog.text
+    assert "8-layer depth peel" in warnings.getvalue()
     got = scene.render_still()
     assert got.shape == want.shape == (3, height, width)
     _assert_frames_close(got, want)

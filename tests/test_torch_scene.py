@@ -90,9 +90,9 @@ def test_texels_match_ktx2_roundtrip():
         ]
         for jt, tt, kind in pairs:
             want = decode_texture(jt, kind)
-            assert tt.data.srgb == want.srgb
-            assert len(tt.data.levels) == len(want.levels)
-            for got_level, want_level in zip(tt.data.levels, want.levels):
+            assert tt.decoded.srgb == want.srgb
+            assert len(tt.decoded.levels) == len(want.levels)
+            for got_level, want_level in zip(tt.decoded.levels, want.levels):
                 np.testing.assert_array_equal(got_level, want_level)
 
 

@@ -383,7 +383,7 @@ def plane_asset(samplers, uv_scale, uv_offset, plane_size, translation, tex_size
     from vktf_tpu_torch.models.primitives import plane_mesh
 
     def texture(rgba, srgb, fields):
-        return Texture(data=TextureData(levels=generate_mips(rgba, srgb), srgb=srgb),
+        return Texture(decoded=TextureData(levels=generate_mips(rgba, srgb), srgb=srgb),
                        sampler=Sampler(**fields))
 
     if images == "bytes":

@@ -15,6 +15,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+# Frames in flight; the reference pipelines 2 frames via fences/semaphores
+# (src/engine/engine.cppm:40). Engine.render waits for a frame only once
+# this many are outstanding.
+MAX_RENDER_FRAMES = 2
+
 _SUPPORTED_MSAA = (8, 4, 2, 1)
 # anisotropic tap counts the shade kernels take (1/N exact in float32)
 ANISO_TAPS = (1, 2, 4, 8)

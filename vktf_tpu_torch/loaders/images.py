@@ -1,15 +1,28 @@
-"""Decoded textures and mip-chain generation (numpy).
+"""Texture decode and mip-chain generation (numpy).
 
-Counterpart of the numpy half of ``vktf_tpu/loaders/images.py``: a 2x2 box
-filter in LINEAR space (sRGB payloads are linearized, filtered and
-re-encoded), level n+1 sized max(floor(dim / 2), 1).
+Counterpart of ``vktf_tpu/loaders/images.py``: glTF texture sources become
+RGBA8 mip chains, KTX2 through ``loaders/ktx.py`` and PNG/JPEG through PIL.
+Missing mip levels come from a 2x2 box filter in LINEAR space (sRGB
+payloads are linearized, filtered and re-encoded), level n+1 sized
+max(floor(dim / 2), 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
+from pathlib import Path
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
+
+from vktf_tpu_torch.loaders.ktx import KtxCodecError, KtxError, parse_ktx2
+from vktf_tpu_torch.log import Log, default_log
+
+if TYPE_CHECKING:
+    from vktf_tpu_torch.loaders.gltf import Texture
+
+_KTX2_IDENTIFIER = b"\xabKTX 20\xbb\r\n\x1a\n"
 
 
 @dataclasses.dataclass
@@ -77,3 +90,69 @@ def default_texture_data(kind: str) -> TextureData:
     if kind == "normal":
         return TextureData(levels=[_FLAT_NORMAL.copy()], srgb=False)
     return TextureData(levels=[_WHITE.copy()], srgb=kind == "base_color")
+
+
+def decode_texture(texture: Optional["Texture"], kind: str,
+                   log: Optional[Log] = None) -> Optional[TextureData]:
+    """Decode a glTF texture source to an RGBA8 mip chain.
+
+    kind: "base_color" (sRGB), "metallic_roughness" or "normal" (linear).
+    A texture that already carries its decoded chain (``Texture.decoded``,
+    as the procedural presets build them) returns it. Returns None, with a
+    logged error, when the source is missing or undecodable; callers apply
+    the reference's logged default (model.cppm:368-409). A codec this
+    installation lacks (ZSTD without ``zstandard``, PNG/JPEG without PIL)
+    raises instead: that is no fault of the file.
+    """
+    log = log or default_log()
+    if texture is None:
+        return None
+    if texture.decoded is not None:
+        return texture.decoded
+    srgb_hint = kind == "base_color"
+
+    blob: Optional[bytes] = None
+    name = texture.name or "<texture>"
+    if texture.data is not None:
+        blob = texture.data
+    elif texture.filepath is not None:
+        name = str(texture.filepath)
+        try:
+            blob = Path(texture.filepath).read_bytes()
+        except OSError:
+            log.error(f"Failed to read texture file {name}")
+            return None
+    if blob is None:
+        log.error(f"Texture {name} has no data source")
+        return None
+
+    if blob[:12] == _KTX2_IDENTIFIER:
+        try:
+            ktx = parse_ktx2(blob, name=name, log=log)
+        except KtxCodecError:
+            raise
+        except KtxError as error:
+            # a malformed .ktx2 inside a scene takes the logged default
+            # (model.cppm:301-321) instead of aborting the whole load
+            log.error(f"Failed to parse KTX texture {name}: {error}")
+            return None
+        if ktx is None:
+            return None
+        levels = ktx.levels
+        if len(levels) == 1:
+            levels = generate_mips(levels[0], ktx.srgb)
+        return TextureData(levels=levels, srgb=ktx.srgb)
+
+    try:
+        from PIL import Image
+    except ImportError as error:
+        raise ModuleNotFoundError(
+            f"texture {name} is PNG/JPEG, whose decode needs PIL (Pillow), "
+            "which is not installed; KTX2 textures need no PIL") from error
+    try:
+        with Image.open(io.BytesIO(blob)) as img:
+            base = np.asarray(img.convert("RGBA"), np.uint8)
+    except Exception as error:  # PIL's decode errors have no common base
+        log.error(f"Failed to decode texture image {name}: {error}")
+        return None
+    return TextureData(levels=generate_mips(base, srgb_hint), srgb=srgb_hint)

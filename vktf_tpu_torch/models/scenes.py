@@ -128,7 +128,7 @@ def mr_texture(size: int, roughness: np.ndarray, metallic: np.ndarray) -> np.nda
 def _texture(name: str, rgba: np.ndarray, srgb: bool, sampler: Sampler) -> Texture:
     """A texture holding its full decoded mip chain."""
     data = TextureData(levels=generate_mips(rgba, srgb), srgb=srgb)
-    return Texture(name=name, data=data, sampler=sampler)
+    return Texture(name=name, decoded=data, sampler=sampler)
 
 
 # ---------------------------------------------------------------------------

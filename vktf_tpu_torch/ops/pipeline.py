@@ -236,7 +236,10 @@ class FrameProgram:
 
     def _maybe_resort(self, setup, view_projection):
         vp = np.asarray(view_projection, dtype=np.float64)
-        if self._perm is not None and self.config.resort_threshold > 0:
+        # scenes of one shape may share this program (runtime/cache.py): any
+        # permutation orders any of their streams, but only on its device
+        if (self._perm is not None and self.config.resort_threshold > 0
+                and self._perm.device == setup["valid"].device):
             ref = self._sort_vp
             if (np.linalg.norm(vp - ref)
                     <= self.config.resort_threshold * np.linalg.norm(ref)):

@@ -9,23 +9,27 @@ built once here. Only the leaves the ported frame path reads exist.
 The numpy half (``flatten_assets_numpy``) reproduces the JAX package's
 leaves exactly; ``scene_from_numpy`` uploads any such leaf dict — the
 port's own, or one read back from the JAX package's scene — to a device.
+Every referenced (texture, kind) is decoded once, in a thread pool
+(``loaders/images.decode_texture``); a texture whose decode fails takes
+the default texture with a logged error and the counter
+``textures.decode_failed``, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import logging
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from vktf_tpu_torch.config import PEEL_LAYERS_MAX
-from vktf_tpu_torch.loaders.gltf import Asset, Material
-from vktf_tpu_torch.loaders.images import default_texture_data
+from vktf_tpu_torch.loaders.gltf import Asset, GltfError, Material
+from vktf_tpu_torch.loaders.images import decode_texture, default_texture_data
+from vktf_tpu_torch.log import Log, default_log
 from vktf_tpu_torch.ops.texture_pack import build_material_pool
-
-log = logging.getLogger(__name__)
+from vktf_tpu_torch.utils.profiling import counters
 
 _ALPHA_MODES = {"OPAQUE": 0, "MASK": 1, "BLEND": 2}
 
@@ -90,7 +94,7 @@ def _compute_smooth_normals(positions: np.ndarray, indices: np.ndarray) -> np.nd
     return (out / lengths).astype(np.float32)
 
 
-def _estimate_peel_layers(mat_alpha, tri_material, tri_instance) -> int:
+def _estimate_peel_layers(mat_alpha, tri_material, tri_instance, log: Log) -> int:
     """Depth-peel layer count: 1 + the number of translucent (MASK/BLEND)
     instances, clamped to PEEL_LAYERS_MAX. Any two translucent instances can
     line up along some view ray, so the instance count is the sound bound;
@@ -102,9 +106,10 @@ def _estimate_peel_layers(mat_alpha, tri_material, tri_instance) -> int:
         return 1
     n_alpha = int(np.unique(tri_instance[alpha_mask[tri_material]]).shape[0])
     if 1 + n_alpha > PEEL_LAYERS_MAX:
-        log.warning("%d translucent instances exceed the %d-layer depth peel "
-                    "limit: deeper stacks composite only their nearest %d "
-                    "fragments", n_alpha, PEEL_LAYERS_MAX, PEEL_LAYERS_MAX)
+        counters.add("scene.peel_layers_clamped")
+        log.warn(f"{n_alpha} translucent instances exceed the {PEEL_LAYERS_MAX}-layer "
+                 f"depth peel limit: deeper stacks composite only their nearest "
+                 f"{PEEL_LAYERS_MAX} fragments")
     return min(1 + n_alpha, PEEL_LAYERS_MAX)
 
 
@@ -117,21 +122,57 @@ def _spread3(x):  # 10 bits -> every 3rd bit
     return x
 
 
-def flatten_assets_numpy(assets: Sequence[Asset]) -> Tuple[dict, SceneMeta]:
+def _texture_refs(material: Optional[Material]):
+    """(texture, kind) of each texture slot a material reads."""
+    if material is None:
+        return []
+    pbr = material.pbr_metallic_roughness
+    refs = [(material.normal_texture, "normal")]
+    if pbr is not None:
+        refs += [(pbr.base_color_texture, "base_color"),
+                 (pbr.metallic_roughness_texture, "metallic_roughness")]
+    return [(tex, kind) for tex, kind in refs if tex is not None]
+
+
+def decode_textures(assets: Sequence[Asset], log: Optional[Log] = None) -> dict:
+    """Decode every (texture, kind) the assets' primitives reference, once
+    each and in parallel (the reference's std::async KTX fan-out,
+    model.cppm:333-349; zlib, zstd and PIL release the interpreter lock).
+    Returns {(id(texture), kind): TextureData or None on a failed decode}."""
+    log = log or default_log()
+    jobs: dict[tuple[int, str], tuple] = {}
+    for asset in assets:
+        for mesh in asset.meshes:
+            for prim in mesh.primitives:
+                for tex, kind in _texture_refs(prim.material):
+                    jobs.setdefault((id(tex), kind), (tex, kind))
+    if not jobs:
+        return {}
+    with ThreadPoolExecutor() as pool:
+        futures = {key: pool.submit(decode_texture, tex, kind, log)
+                   for key, (tex, kind) in jobs.items()}
+        return {key: f.result() for key, f in futures.items()}
+
+
+def flatten_assets_numpy(assets: Sequence[Asset], log: Optional[Log] = None,
+                         decoded: Optional[dict] = None) -> Tuple[dict, SceneMeta]:
     """Combine assets into the frame path's leaves as numpy arrays (the JAX
-    package's dtypes and values) plus the static SceneMeta."""
+    package's dtypes and values) plus the static SceneMeta. ``decoded`` is
+    ``decode_textures``' result for these assets (decoded here when None)."""
+    log = log or default_log()
     order: list[tuple[Asset, int, int, int]] = []
     for asset in assets:
         if asset.default_scene is None:
             if not asset.scenes:
-                log.error("Asset %s has no scenes; skipping", asset.name)
+                counters.add("assets.skipped")
+                log.error(f"Asset {asset.name} has no scenes; skipping")
                 continue
             scene_def = asset.scenes[0]
         else:
             scene_def = asset.scenes[asset.default_scene]
         if not scene_def.root_nodes:
-            log.error("Asset %s default scene has no root nodes; skipping",
-                      asset.name)
+            counters.add("assets.skipped")
+            log.error(f"Asset {asset.name} default scene has no root nodes; skipping")
             continue
         stack = [(root, -1, 0) for root in scene_def.root_nodes]
         while stack:
@@ -220,8 +261,8 @@ def flatten_assets_numpy(assets: Sequence[Asset]) -> Tuple[dict, SceneMeta]:
     uvs = np.concatenate(uvs_list)
     indices = np.concatenate(indices_list).astype(np.int32)
     if indices.size and int(indices.max()) >= positions.shape[0]:
-        raise ValueError(f"triangle index {int(indices.max())} out of bounds "
-                         f"for {positions.shape[0]} vertices")
+        raise GltfError(f"triangle index {int(indices.max())} out of bounds "
+                        f"for {positions.shape[0]} vertices")
     tri_instance = np.concatenate(tri_inst_list)
     tri_material = np.asarray(inst_materials, np.int32)[tri_instance]
 
@@ -252,14 +293,18 @@ def flatten_assets_numpy(assets: Sequence[Asset]) -> Tuple[dict, SceneMeta]:
     texture_entries: list[tuple] = []  # (TextureData, sampler dict)
     texture_index: dict[tuple[Optional[int], str], int] = {}
 
+    if decoded is None:
+        decoded = decode_textures(assets, log)
+
     def add_texture(gltf_texture, kind: str) -> int:
         key = (id(gltf_texture) if gltf_texture is not None else None, kind)
         if key in texture_index:
             return texture_index[key]
-        data = gltf_texture.data if gltf_texture is not None else None
+        data = decoded.get(key) if gltf_texture is not None else None
         if data is None:
             if gltf_texture is not None:
-                log.error("Using default %s texture: texture has no data", kind)
+                counters.add("textures.decode_failed")
+                log.error(f"Using default {kind} texture after decode failure")
             data = default_texture_data(kind)
         sampler = {}
         if gltf_texture is not None and gltf_texture.sampler is not None:
@@ -286,8 +331,8 @@ def flatten_assets_numpy(assets: Sequence[Asset]) -> Tuple[dict, SceneMeta]:
             continue
         pbr = material.pbr_metallic_roughness
         if pbr is None:
-            log.error("Material %s has no PBR metallic-roughness; using "
-                      "defaults", material.name)
+            log.error(f"Material {material.name} has no PBR metallic-roughness; "
+                      "using defaults")
             pbr_base, pbr_metallic, pbr_rough = np.ones(4, np.float32), 1.0, 1.0
             base_tex = mr_tex = None
         else:
@@ -369,7 +414,7 @@ def flatten_assets_numpy(assets: Sequence[Asset]) -> Tuple[dict, SceneMeta]:
         num_instances=len(inst_nodes),
         num_triangles=int(num_tris),
         num_vertices=int(positions.shape[0]),
-        peel_layers=_estimate_peel_layers(mat_alpha, tri_material, tri_instance),
+        peel_layers=_estimate_peel_layers(mat_alpha, tri_material, tri_instance, log),
         mixed_samplers=material_pool.mixed,
         mirror_wrap=material_pool.mirror,
     )
@@ -401,7 +446,8 @@ def scene_from_numpy(leaves: dict, device) -> RenderScene:
     return RenderScene(**out)
 
 
-def flatten_assets(assets: Sequence[Asset], device) -> Tuple[RenderScene, SceneMeta]:
+def flatten_assets(assets: Sequence[Asset], device,
+                   log: Optional[Log] = None) -> Tuple[RenderScene, SceneMeta]:
     """Combine assets into one RenderScene on `device`."""
-    leaves, meta = flatten_assets_numpy(assets)
+    leaves, meta = flatten_assets_numpy(assets, log)
     return scene_from_numpy(leaves, device), meta

@@ -1,13 +1,15 @@
 """User-facing Scene: device state, camera and the frame program.
 
-Counterpart of ``vktf_tpu/scene/scene.py``: combines assets into one
-device scene, owns the camera (default: position (0, 1, 0), looking +x,
-45 degree vertical field of view) and renders frames.
+Counterpart of ``vktf_tpu/scene/scene.py``, with its signature
+``Scene(assets, config, log=None, camera=None, ...)``: combines assets into
+one device scene, owns the camera (default: position (0, 1, 0), looking
++x, 45 degree vertical field of view) and renders frames. The frame
+program comes from the shared registry (``runtime/cache.py``), so scenes
+of one shape and configuration share it.
 """
 
 from __future__ import annotations
 
-import logging
 from typing import Optional, Sequence
 
 import numpy as np
@@ -15,38 +17,50 @@ import torch
 
 from vktf_tpu_torch.config import RenderConfig
 from vktf_tpu_torch.loaders.gltf import Asset
+from vktf_tpu_torch.log import Log, default_log
 from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
-from vktf_tpu_torch.ops.pipeline import FrameProgram
+from vktf_tpu_torch.runtime.cache import frame_program
 from vktf_tpu_torch.scene.flatten import RenderScene, SceneMeta, flatten_assets
 
-log = logging.getLogger(__name__)
+
+def resolve_device(device=None) -> torch.device:
+    """The device a scene renders on: the current CUDA device by default;
+    with no card this raises, and the CPU (the kernels' plain versions)
+    must be asked for with device="cpu"."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device=\"cpu\" to render "
+                               "with the plain PyTorch versions on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
 
 
 class Scene:
     def __init__(self, assets: Sequence[Asset], config: RenderConfig,
-                 camera: Optional[Camera] = None, device=None):
-        """device: where the scene lives and renders. The default is the
-        current CUDA device; with no card it raises, and the CPU (the
-        kernels' plain versions) must be asked for with device="cpu"."""
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("no CUDA device: pass device=\"cpu\" to render "
-                                   "with the plain PyTorch versions on the CPU")
-            device = "cuda"
-        render_scene, meta = flatten_assets(assets, torch.device(device))
-        self._init(render_scene, meta, config, camera)
+                 log: Optional[Log] = None, camera: Optional[Camera] = None,
+                 device=None, mesh=None):
+        """device: where the scene lives and renders (``resolve_device``).
+        mesh: the JAX package's multi-device frame path, which the port
+        does not have yet; any value raises."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "Scene(mesh=...): the multi-device frame path is not ported "
+                "(ROADMAP Queue 1 #8); render on one device")
+        log = log or default_log()
+        render_scene, meta = flatten_assets(assets, resolve_device(device), log)
+        self._init(render_scene, meta, config, camera, log)
 
     @classmethod
     def from_render_scene(cls, render_scene: RenderScene, meta: SceneMeta,
-                          config: RenderConfig,
-                          camera: Optional[Camera] = None) -> "Scene":
+                          config: RenderConfig, camera: Optional[Camera] = None,
+                          log: Optional[Log] = None) -> "Scene":
         """A Scene over an already flattened scene (for example one carried
         over from another renderer with ``flatten.scene_from_numpy``)."""
         scene = cls.__new__(cls)
-        scene._init(render_scene, meta, config, camera)
+        scene._init(render_scene, meta, config, camera, log or default_log())
         return scene
 
-    def _init(self, render_scene, meta, config, camera) -> None:
+    def _init(self, render_scene, meta, config, camera, log: Log) -> None:
         self.config = config
         self.render_scene = render_scene
         self.meta = meta
@@ -60,10 +74,13 @@ class Scene:
                 z_far=1.0e6,
             ),
         )
-        self.frame_program = FrameProgram(meta, config)
-        log.info("Scene ready: %d tris, %d verts, %d instances, %d lights",
-                 meta.num_triangles, meta.num_vertices, meta.num_instances,
-                 meta.num_lights)
+        self.frame_program = frame_program(meta, config)
+        log.info(f"Scene ready: {meta.num_triangles} tris, {meta.num_vertices} verts, "
+                 f"{meta.num_instances} instances, {meta.num_lights} lights")
+
+    @property
+    def light_count(self) -> int:
+        return self.meta.num_lights
 
     def render_async(self) -> torch.Tensor:
         """Enqueue one frame; returns the (3, H, W) uint8 device tensor
@@ -74,5 +91,7 @@ class Scene:
                                   self.camera.position)
 
     def render_still(self) -> np.ndarray:
-        """The (3, H, W) uint8 frame at the current camera, on the host."""
+        """The exact (3, H, W) uint8 frame at the current camera, on the
+        host (the port presents only the exact planar RGB frame, so a still
+        is the presented frame)."""
         return self.render_async().cpu().numpy()
