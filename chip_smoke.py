@@ -1,7 +1,8 @@
 """GPU smoke run of the PyTorch + CUDA port (vktf_tpu_torch).
 
     python3 chip_smoke.py            # sponza preset, 1920x1080, 4x MSAA
-    python3 chip_smoke.py --small    # the 38k-triangle courtyard at 256x128
+    python3 chip_smoke.py --small    # the 38k-triangle courtyard at 256x128 (the
+                                     # presets and the bench at 256x128 too)
 
 Needs one CUDA card and nvcc. In order, it:
   1. reports the card (nvidia-smi name and power limit);
@@ -69,10 +70,27 @@ Needs one CUDA card and nvcc. In order, it:
      frame, no other kernel) and its FrameTimer p50 / p99 / FPS beside
      phase 4's render_async frame with 4 in flight; two frames dumped by
      --frame-dir (game.start) must decode to the presented frames;
- 11. checks the frames (shape, dtype, >= 50% of pixels lit), saves them as
-     .npy in the build directory (vktf_tpu_torch/_build/, not committed),
-     and prints the kernels line, the card line and, last,
-     {"ok": true, "device": {...}}.
+ 11. the other presets at bench_torch.py's configurations and cameras (box
+     and duck 1920x1080 1x MSAA, helmet 1920x1080 4x, flythrough 3840x2160
+     4x), each a path through Scene with the counters zeroed and read
+     (setup, raster, shade table and shade once a frame, nothing else),
+     and a 256x128 frame of each on the card against the CPU;
+ 12. the present encodings on the opaque sponza (yuv420, the rgb preview at
+     scale 2, yuv420 at scale 2 and 4), each a path through Scene: the
+     encoded frame must equal the CPU encode of the card's exact frame bit
+     for bit and render_still the exact frame of phase 4; prints the frame
+     time with 4 in flight and the copy to the host, and the bytes copied;
+ 13. sample-rate shading on the opaque sponza and the translucent one
+     (K = 8), each a path through Scene: the layer record once a frame, the
+     resolve record never, and 4 render_async calls return while a sleep
+     kernel holds the stream; the layer record over every (layer, sample)
+     entry timed with its bound, at K = 1 also held to its plain version;
+ 14. one bench_torch.run_bench("sponza", 1920, 1080, 4, frames=8) on the
+     card, printing its JSON line (fps > 0 required);
+ 15. checks the frames (shape, dtype, the share of pixels lit: 50% for
+     sponza paths, 5% for the single-object presets), saves them as .npy in
+     the build directory (vktf_tpu_torch/_build/, not committed), and prints
+     the kernels line, the card line and, last, {"ok": true, "device": {...}}.
 Each kernel record carries its least possible time on the card
 (``bound_ms``: the larger of the bytes it must move over 3.35 TB/s and its
 float32 operations over 67 TFLOP/s, both counted from this run's inputs).
@@ -330,8 +348,8 @@ def shade_bound(tri, sx, sy, table, max_anisotropy: float, num_lights: int, laye
 def frame_stages(scn) -> dict:
     """A scene's frame up to the shade, stage by stage with the kernels, as
     its path gives each stage its inputs: vp, inst_rows, tri_instance,
-    lights, setup, stream, table, and the shade's tri and frac (kernel_ab.py
-    uses it too)."""
+    lights, setup, stream, table, the raster's ids, and the pixel-rate
+    shade's tri and frac (kernel_ab.py uses it too)."""
     from vktf_tpu_torch.ops import pipeline, raster, setup_kernel, shade_table
 
     rs, config = scn.render_scene, scn.config
@@ -350,7 +368,7 @@ def frame_stages(scn) -> dict:
                                           setup["anchor2"], inst_rows, tri_instance)
     tri, frac = pipeline.pixel_winner(ids, depth)
     return dict(vp=vp, inst_rows=inst_rows, tri_instance=tri_instance, lights=lights,
-                setup=setup, stream=stream, table=table, tri=tri, frac=frac)
+                setup=setup, stream=stream, table=table, ids=ids, tri=tri, frac=frac)
 
 
 def read_png(path) -> np.ndarray:
@@ -603,9 +621,11 @@ def main() -> int:
 
     flight_by_path = {}
 
-    def drive(scn, tag: str):
+    def drive(scn, tag: str, min_lit: float = 0.5):
         """One path through Scene: counters zeroed just before, read just
-        after; prints frame and stage times."""
+        after; prints frame and stage times. The presented frame must be
+        the CPU encode (ops/present.py) of the exact still, and at least
+        min_lit of the still's pixels differ from the clear colour."""
         for k in kernels:
             k.launches = 0
         frame_ms, stage_ms = [], []
@@ -646,13 +666,16 @@ def main() -> int:
                   for name in stage_ms[0]}
         log(f"[{tag}] stage ms (CUDA events, steady median):",
             json.dumps({k: round(v, 4) for k, v in stages.items()}))
-        require(still.shape == (3, height, width) and still.dtype == np.uint8,
+        cfg = scn.config
+        require(still.shape == (3, cfg.height, cfg.width) and still.dtype == np.uint8,
                 f"{tag} frame shape/dtype {still.shape} {still.dtype}")
-        require(np.array_equal(still, frame.cpu().numpy()), f"{tag}: render_still == render_async")
+        encoded = present.make_present_encoder(cfg)(torch.from_numpy(still))
+        require(torch.equal(frame.cpu(), encoded),
+                f"{tag}: render_async == the CPU encode of render_still")
         lit = float((still != clear[:, None, None]).any(axis=0).mean())
         log(f"[{tag}] pixels differing from the clear colour: {lit:.4f}")
-        require(lit >= 0.5, f"{tag}: at least half the frame is lit")
-        out_path = _cuda.BUILD_DIR / f"frame_{tag}_{width}x{height}.npy"
+        require(lit >= min_lit, f"{tag}: at least {min_lit} of the frame is lit")
+        out_path = _cuda.BUILD_DIR / f"frame_{tag}_{cfg.width}x{cfg.height}.npy"
         out_path.parent.mkdir(parents=True, exist_ok=True)
         np.save(out_path, still)
         log(f"[{tag}] frame saved:", out_path.relative_to(_cuda.BUILD_DIR.parent.parent))
@@ -1110,6 +1133,9 @@ def main() -> int:
         ("mixed_taps2", ("mixed",), {"aniso_taps": 2}),
         ("translucent_classic_taps2", ("blend",), {"shade_fused_pool": False, "aniso_taps": 2}),
         ("translucent_mixed_taps2", ("blend", "mixed"), {"aniso_taps": 2}),
+        ("sample", (), {"shading_rate": "sample"}),
+        ("translucent_sample", ("blend",), {"shading_rate": "sample"}),
+        ("mixed_sample_taps2", ("mixed",), {"shading_rate": "sample", "aniso_taps": 2}),
     ]
     for tag, edits, overrides in small_paths:
         small = [sponza_like_asset(columns_per_ring=4, clutter=8, curtains=2, tex_size=64)]
@@ -1130,6 +1156,129 @@ def main() -> int:
     # ---- 10. the viewer: glTF files on disk -> Engine -> game.main ---------
     viewer_phase(dev, config, camera, meta, still, sponza_files, box_files, asset_dir,
                  kernels, flight_by_path["opaque"], (export_sponza_s, export_box_s), viewer_log)
+
+    # ---- 11. the other presets at their bench configurations -------------
+    import bench_torch
+
+    t_phase = time.perf_counter()
+    for preset in ("box", "duck", "helmet", "flythrough"):
+        _, w_p, h_p, msaa_p = bench_torch.CONFIGS[preset]
+        if args.small:
+            w_p, h_p = 256, 128
+        pose = bench_torch.CAMERAS[preset]
+        t0 = time.perf_counter()
+        assets_p = build_preset(preset)
+        scene_p = Scene(assets_p, RenderConfig(width=w_p, height=h_p, msaa_samples=msaa_p),
+                        camera=Camera(*pose, ViewFrustumParams(np.radians(45.0), w_p / h_p,
+                                                               0.1, 1.0e6)), device=dev)
+        torch.cuda.synchronize()
+        m_p = scene_p.meta
+        log(f"[{preset}] {w_p}x{h_p} {msaa_p}x MSAA: {m_p.num_triangles} triangles, "
+            f"{m_p.num_instances} instances, {m_p.num_lights} lights, peel layers "
+            f"{scene_p.frame_program.layers}; build+flatten+upload "
+            f"{time.perf_counter() - t0:.1f} s")
+        _still_p, launches_p = drive(scene_p, preset, min_lit=0.05)
+        require(all(launches_p[k.name] == launches_p["setup"] > 0 for k in kernels[:4])
+                and not any(launches_p[k.name] for k in kernels[4:]),
+                f"{preset}: setup, raster, shade table and shade once a frame, nothing else")
+        cam_s = Camera(*pose, ViewFrustumParams(np.radians(45.0), 2.0, 0.1, 1.0e6))
+        small_p = RenderConfig(width=256, height=128, msaa_samples=msaa_p)
+        fd = np.abs(Scene(assets_p, small_p, camera=cam_s, device=dev).render_still()
+                    .astype(np.int16)
+                    - Scene(assets_p, small_p, camera=cam_s, device="cpu").render_still()
+                    ).max(axis=0)
+        log(f"[{preset}] small frame 256x128 card vs CPU plain: max diff {int(fd.max())}, off "
+            f"at {float((fd > 0).mean()):.5f} of pixels (tolerance: 1 on {FRAME_MISMATCH})")
+        require(fd.max() <= 1 and (fd > 0).mean() <= FRAME_MISMATCH, f"small {preset} frame")
+        del scene_p, assets_p
+    log(f"[presets] phase time: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 12. the present encodings on the opaque sponza -------------------
+    def flight_with_copy(scn, n: int):
+        """FRAMES_IN_FLIGHT frames in flight, each copied to a pinned host
+        buffer by a non-blocking copy, waiting on the oldest copy's event
+        (Engine.render's and bench_torch.py's pattern): (ms per frame,
+        bytes copied per frame)."""
+        pending, free = collections.deque(), []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            if len(pending) == FRAMES_IN_FLIGHT:
+                host, done = pending.popleft()
+                done.synchronize()
+                free.append(host)
+            frame = scn.render_async()
+            host = free.pop() if free else torch.empty(frame.shape, dtype=frame.dtype,
+                                                        pin_memory=True)
+            host.copy_(frame, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            pending.append((host, done))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n, frame.numel() * frame.element_size()
+
+    t_phase = time.perf_counter()
+    n_copy = 4 * args.frames
+    exact_ms, exact_bytes = flight_with_copy(scene, n_copy)
+    log(f"[present_rgb_x1] with {FRAMES_IN_FLIGHT} frames in flight and the copy to the host: "
+        f"{exact_ms:.4f} ms per frame over {n_copy}, {exact_bytes} bytes copied per frame")
+    for fmt, scale in (("yuv420", 1), ("rgb", 2), ("yuv420", 2), ("yuv420", 4)):
+        tag = f"present_{fmt}_x{scale}"
+        scene_e = variant(scene, present_format=fmt, present_scale=scale)
+        still_e, launches_e = drive(scene_e, tag)
+        require(np.array_equal(still_e, still),
+                f"{tag}: render_still is the exact frame bit for bit")
+        require(all(launches_e[k.name] == launches_e["setup"] > 0 for k in kernels[:4]),
+                f"{tag}: the K = 1 kernels once a frame")
+        copy_ms, copy_bytes = flight_with_copy(scene_e, n_copy)
+        log(f"[{tag}] encoded frame == CPU encode of the card's exact frame (bit for bit); still "
+            f"== exact frame; with {FRAMES_IN_FLIGHT} frames in flight and the copy to the host: "
+            f"{copy_ms:.4f} ms per frame over {n_copy}, {copy_bytes} bytes copied per frame "
+            f"({exact_bytes / copy_bytes:.2f}x fewer than the exact frame)")
+        del scene_e
+    log(f"[present] phase time: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 13. sample-rate shading: opaque and translucent K = 8 -------------
+    t_phase = time.perf_counter()
+    for tag, base, still_base in (("sample", scene, still), ("translucent_sample", scene_t,
+                                                             still_t)):
+        scene_s = variant(base, shading_rate="sample")
+        form = scene_s.frame_program.form
+        require((form.texels, form.taps, form.attrs) == ("fused", 1, False),
+                f"{tag}: shade form {form}")
+        still_s, launches_s = drive(scene_s, tag)
+        behind_a_busy_stream(scene_s, tag, still_s)
+        require(launches_s["shade_layer"] == launches_s["setup"] > 0
+                and launches_s["shade"] == 0,
+                f"{tag}: the layer record once a frame, the resolve record never")
+        share = float((still_s != still_base).any(axis=0).mean())
+        log(f"[{tag}] K = {scene_s.frame_program.layers}; pixels differing from the pixel-rate "
+            f"frame: {share:.4f}")
+        st = frame_stages(scene_s)
+        tri_s = st["ids"].reshape(scene_s.frame_program.layers, -1)
+        sx_s, sy_s = pipeline.sample_centers(ph, pw, config.msaa_samples, dev)
+        sl_args_s = (tri_s, sx_s, sy_s, st["table"], scene_s.render_scene.quad_pool, cam,
+                     st["lights"], ma)
+        if base is scene:  # K = 1: the record against its plain version too
+            compare_layer(f"shade layer at sample rate, K = 1, {tri_s.shape[1]} samples",
+                          shade_kernel.shade_layer(*sl_args_s),
+                          shade_kernel.shade_layer_plain(*sl_args_s), tri_s)
+        kernel_ms = cuda_ms(lambda: shade_kernel.shade_layer(*sl_args_s), 5)
+        bound_s = shade_bound(tri_s, sx_s, sy_s, st["table"], ma, meta.num_lights, True)
+        log(f"[{tag}] shade_layer over {tuple(tri_s.shape)} (layer, sample) entries: "
+            f"{kernel_ms:.4f} ms (CUDA events), bound {bound_s[0]:.5f} ms ({bound_s[1]})")
+        del scene_s, st, tri_s, sl_args_s
+    log(f"[sample] phase time: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 14. the bench: bench_torch.run_bench on the card -----------------
+    t_phase = time.perf_counter()
+    w_b, h_b = (256, 128) if args.small else (1920, 1080)
+    stats = bench_torch.run_bench("sponza", w_b, h_b, 4, frames=8)
+    line = bench_torch._format_line("sponza", w_b, h_b, 4, stats, "rgb", None)
+    log("[bench] " + json.dumps(line))
+    require(stats["fps"] > 0 and stats["platform"] == "cuda" and "preview_fps" in stats,
+            "bench_torch.run_bench measures the card")
+    log(f"[bench] phase time: {time.perf_counter() - t_phase:.1f} s")
 
     log(json.dumps({"kernels": records}))
     log(card)

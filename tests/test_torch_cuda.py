@@ -21,7 +21,10 @@ stack shuffled across chunks; shade tables of random rows at 1, 129 and
 frames enqueued behind a sleeping stream, through Scene and through
 Engine.render; the Engine's pinned host ring over a moving camera; the
 viewer (game.main) on a small file written by the port's exporter, on the
-card against the CPU (chip_smoke.py's FRAME_MISMATCH). Tolerance: bit-equal (the
+card against the CPU (chip_smoke.py's FRAME_MISMATCH); the present
+encodings on the card bit for bit the CPU's; sample-rate frames and the
+duck and box presets on the card against the CPU (FRAME_MISMATCH), and the
+sample-rate frame's launches. Tolerance otherwise: bit-equal (the
 kernels run the plain versions' operations in the same order, with fused
 multiply-adds at the same places and the same CUDA math library).
 """
@@ -676,3 +679,97 @@ def test_game_main_on_the_card_matches_the_cpu(dev, msaa, tmp_path, monkeypatch)
         diff = np.abs(a - b).max(axis=-1)
         assert diff.max() <= 1 and (diff > 0).mean() <= FRAME_MISMATCH, g.name
         assert (a[..., :3].max(axis=-1) > 0).mean() > 0.05
+
+
+@pytest.mark.parametrize("fmt, scale", [("yuv420", 1), ("rgb", 2), ("yuv420", 2), ("rgb", 4),
+                                        ("yuv420", 4)])
+def test_present_encodings_on_the_card_equal_the_cpu(dev, fmt, scale):
+    """The encode chain on the card, bit for bit the CPU encode of the same
+    frame (random bytes, the 0/255 extremes, gray), and the frame program's
+    encoded frame the CPU encode of its own exact frame."""
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.ops.present import make_present_encoder
+    from vktf_tpu_torch.scene.scene import Scene
+
+    cfg = RenderConfig(width=tp.WIDTH, height=tp.HEIGHT, msaa_samples=4, present_format=fmt,
+                       present_scale=scale)
+    encode = make_present_encoder(cfg)
+    rng = np.random.default_rng(5)
+    gray = rng.integers(0, 256, (tp.HEIGHT, tp.WIDTH), dtype=np.uint8)
+    for frame in (rng.integers(0, 256, (3, tp.HEIGHT, tp.WIDTH), dtype=np.uint8),
+                  rng.choice(np.array([0, 255], np.uint8), (3, tp.HEIGHT, tp.WIDTH)),
+                  np.broadcast_to(gray, (3, tp.HEIGHT, tp.WIDTH)).copy()):
+        t = torch.from_numpy(frame)
+        got = encode(t.to(dev))
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), encode(t))
+    scene = Scene(tp.torch_assets("sponza_small"), cfg, camera=tp.port_camera(), device=dev)
+    encoded = scene.render_async()
+    exact = scene.render_still()
+    assert torch.equal(encoded.cpu(), encode(torch.from_numpy(exact)))
+    exact_scene = Scene(tp.torch_assets("sponza_small"), cfg.replace(present_format="rgb",
+                                                                      present_scale=1),
+                        camera=tp.port_camera(), device=dev)
+    np.testing.assert_array_equal(exact, exact_scene.render_still())
+
+
+@pytest.mark.parametrize("name, kw", [("sponza_small", {}), ("sponza_small_blend", {}),
+                                      ("sponza_small_mixed", {}),
+                                      ("sponza_small", {"aniso_taps": 2})])
+def test_sample_rate_frame_on_the_card_matches_the_cpu(dev, name, kw):
+    """A sample-rate frame (4x MSAA, the layer records over every sample)
+    on the card against the CPU's, within chip_smoke.py's FRAME_MISMATCH."""
+    from chip_smoke import FRAME_MISMATCH
+
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.scene.scene import Scene
+
+    cfg = RenderConfig(width=tp.WIDTH, height=tp.HEIGHT, msaa_samples=4, shading_rate="sample",
+                       **kw)
+    frames = [Scene(tp.torch_assets(name), cfg, camera=tp.port_camera(),
+                    device=device).render_still() for device in (dev, "cpu")]
+    diff = np.abs(frames[0].astype(np.int16) - frames[1]).max(axis=0)
+    assert diff.max() <= 1 and (diff > 0).mean() <= FRAME_MISMATCH
+
+
+def test_sample_rate_launches_the_layer_record(dev):
+    """At K = 1 the sample-rate frame launches the layer record once, and
+    the resolve record never."""
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.ops import shade_kernel
+    from vktf_tpu_torch.scene.scene import Scene
+
+    scene = Scene(tp.torch_assets("sponza_small"),
+                  RenderConfig(width=tp.WIDTH, height=tp.HEIGHT, msaa_samples=4,
+                               shading_rate="sample"),
+                  camera=tp.port_camera(), device=dev)
+    scene.render_async()
+    for k in shade_kernel.KERNELS:
+        k.launches = 0
+    scene.render_async()
+    torch.cuda.synchronize()
+    assert {k.name: k.launches for k in shade_kernel.KERNELS if k.launches} == {
+        "shade_layer": 1}
+
+
+def test_duck_frame_on_the_card_matches_the_cpu(dev):
+    """One duck frame (4,096 triangles, exactly 16 raster chunks; bench.py's
+    msaa 1 and camera) and one box frame (12 triangles, less than one
+    chunk) on the card against the CPU."""
+    from chip_smoke import FRAME_MISMATCH
+
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
+    from vktf_tpu_torch.models.scenes import build_preset
+    from vktf_tpu_torch.scene.scene import Scene
+
+    for preset, pose in (("duck", ((0.0, 0.5, 2.0), (0.0, -0.2, -1.0))),
+                         ("box", ((0.0, 0.8, 2.4), (0.0, -0.25, -1.0)))):
+        cfg = RenderConfig(width=320, height=192, msaa_samples=1)
+        frames = [Scene(build_preset(preset), cfg,
+                        camera=Camera(*pose, ViewFrustumParams(np.radians(45.0), 320 / 192,
+                                                               0.1, 1.0e6)),
+                        device=device).render_still() for device in (dev, "cpu")]
+        diff = np.abs(frames[0].astype(np.int16) - frames[1]).max(axis=0)
+        assert (frames[1].max(axis=0) > 0).mean() > 0.05, preset
+        assert diff.max() <= 1 and (diff > 0).mean() <= FRAME_MISMATCH, preset

@@ -260,8 +260,7 @@ def test_no_card_raises_unless_cpu_asked(entry, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--backend", "tiled"], ["--backend", "dense"], ["--mesh", "2,2"], ["--preview"],
-    ["--present-format", "yuv420"], ["--present-scale", "2"]])
+    ["--backend", "tiled"], ["--backend", "dense"], ["--mesh", "2,2"]])
 def test_refused_viewer_flags(flags, tmp_path, capsys):
     """Options the port cannot honour end main with 1 and the cause, before
     anything renders; nothing falls back."""
@@ -273,6 +272,54 @@ def test_refused_viewer_flags(flags, tmp_path, capsys):
     assert rc == 1
     assert re.search(r"^Error: .*not ported", capsys.readouterr().err, re.M)
     assert not frames.exists()
+
+
+class _FixedDeltaTime:
+    def update(self) -> float:
+        return 1.0 / 30.0
+
+
+@pytest.mark.parametrize("flags, config", [
+    (["--preview"], ("yuv420", 2)),
+    (["--present-format", "yuv420"], ("yuv420", 1)),
+    (["--present-scale", "2"], ("rgb", 2)),
+    (["--preview", "--present-scale", "4"], ("yuv420", 4)),
+])
+def test_preview_viewer_flags(flags, config, tmp_path, monkeypatch):
+    """The present flags render as the JAX viewer maps them (--preview is
+    yuv420 at scale >= 2): each dumped frame is the host decode of the
+    device encoding of the exact frame at the same fixed-step pose, and
+    the engine ran the configuration asked for."""
+    import vktf_tpu_torch.engine as engine_mod
+    from PIL import Image
+
+    from vktf_tpu_torch.game import main
+    from vktf_tpu_torch.ops.present import decode_present, make_present_encoder
+
+    monkeypatch.setattr(engine_mod, "DeltaTime", _FixedDeltaTime)
+    configs = []
+    init = engine_mod.Engine.__init__
+
+    def recording_init(self, window, config=None, *args, **kwargs):
+        configs.append(config)
+        init(self, window, config, *args, **kwargs)
+
+    monkeypatch.setattr(engine_mod.Engine, "__init__", recording_init)
+    args = [str(write_box(tmp_path)), "--width", "64", "--height", "48", "--msaa", "1",
+            "--frames", "3", "--display", "off"]
+    assert main(args + ["--frame-dir", str(tmp_path / "exact")], device="cpu") == 0
+    assert main(args + ["--frame-dir", str(tmp_path / "preview"), *flags], device="cpu") == 0
+    cfg = configs[-1]
+    assert (cfg.present_format, cfg.present_scale) == config
+    exact = sorted((tmp_path / "exact").glob("frame_*.png"))
+    preview = sorted((tmp_path / "preview").glob("frame_*.png"))
+    assert len(exact) == len(preview) == 5
+    encode = make_present_encoder(cfg)
+    for e, p in zip(exact, preview):
+        frame = torch.from_numpy(np.moveaxis(np.asarray(Image.open(e))[..., :3], -1, 0).copy())
+        want = decode_present(encode(frame).numpy(), cfg)
+        np.testing.assert_array_equal(np.moveaxis(np.asarray(Image.open(p))[..., :3], -1, 0),
+                                      want)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ the port's depth planes differ from XLA's by float32 roundings of a
 cancelling sum (test_torch_setup.py), which may move the winner of a
 sample where two surfaces meet at equal depth.
 
-Also here: the port imports neither jax nor the JAX package, and its
+Also here: the duck and helmet presets' frames against the JAX
+program's, the port imports neither jax nor the JAX package, and its
 configuration raises on every value it cannot honour.
 """
 
@@ -35,11 +36,7 @@ def _jax_frame(name: str):
 
 
 def _assert_frames_close(got, want):
-    assert got.shape == want.shape == (3, tp.HEIGHT, tp.WIDTH)
-    assert got.dtype == want.dtype == np.uint8
-    diff = np.abs(got.astype(np.int16) - want).max(axis=0)
-    assert diff.max() <= 1, int(diff.max())
-    assert (diff > 0).mean() <= 5e-3, float((diff > 0).mean())
+    tp.assert_frames_close(got, want, (3, tp.HEIGHT, tp.WIDTH))
 
 
 def _port_config():
@@ -75,6 +72,27 @@ def test_scene_from_preset_matches_jax():
     scene = Scene(tp.torch_assets("sponza_small"), _port_config(),
                   camera=tcam, device="cpu")
     _assert_frames_close(scene.render_still(), _jax_frame("sponza_small"))
+
+
+@pytest.mark.parametrize("preset", ["duck", "helmet"])
+def test_preset_frame_matches_jax(preset):
+    """The duck (bench.py's msaa 1) and helmet (msaa 4, a point light)
+    presets at 96x64 from bench.py's camera of each, through the port's
+    Scene, against the JAX production frame program on the JAX preset."""
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.scene.scene import Scene
+
+    msaa = {"duck": 1, "helmet": 4}[preset]
+    pose = {"duck": ((0.0, 0.5, 2.0), (0.0, -0.2, -1.0)),
+            "helmet": ((0.0, 0.4, 2.4), (0.0, -0.1, -1.0))}[preset]
+    jcam, tcam = tp.cameras(96, 64, pose)
+    scene, _meta = tp.jax_scene(preset)
+    prog = tp.jax_program(preset, msaa, width=96, height=64)
+    want = np.asarray(prog(scene, jcam.view_projection_transform, jcam.position))
+    got = Scene(tp.torch_assets(preset), RenderConfig(width=96, height=64, msaa_samples=msaa),
+                camera=tcam, device="cpu").render_still()
+    assert (want.max(axis=0) > 0).mean() > 0.1  # the object fills 13-15% of the view
+    tp.assert_frames_close(got, want, (3, 64, 96))
 
 
 def test_render_async_is_a_device_tensor():
@@ -145,7 +163,7 @@ def test_port_sources_import_no_jax():
     pattern = ("import jax", "from jax", "import vktf_tpu\n", "import vktf_tpu.",
                "from vktf_tpu ", "from vktf_tpu.")
     files = [p for p in (REPO / "vktf_tpu_torch").rglob("*.py")
-             if "_build" not in p.parts] + [REPO / "chip_smoke.py"]
+             if "_build" not in p.parts] + [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
     for path in files:
         for line in path.read_text().splitlines():
             stripped = line.strip()
@@ -153,9 +171,9 @@ def test_port_sources_import_no_jax():
 
 
 @pytest.mark.parametrize("field, value", [
-    ("shading_rate", "sample"),
-    ("present_format", "yuv420"),
-    ("present_scale", 2),
+    ("shading_rate", "quad"),
+    ("present_format", "yuv444"),
+    ("present_scale", 3),
     ("msaa_samples", 3),
     ("tile_shape", (64, 120)),
     ("pallas_chunk", 512),

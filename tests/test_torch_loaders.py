@@ -885,5 +885,9 @@ def test_export_cli(tmp_path, capsys):
     assert main(["--preset", "box", "--out", str(tmp_path / "out")]) == 0
     written = capsys.readouterr().out.split()
     assert written and all(Path(p).exists() for p in written)
+    # every preset of models.scenes, duck among them; an unknown one is refused
+    assert main(["--preset", "duck", "--out", str(tmp_path / "duck"), "--texture-format",
+                 "rgba", "--supercompression", "zlib"]) == 0
+    assert [Path(p).name for p in capsys.readouterr().out.split()] == ["duck.gltf"]
     with pytest.raises(SystemExit):
-        main(["--preset", "flythrough", "--out", str(tmp_path / "x")])
+        main(["--preset", "teapot", "--out", str(tmp_path / "x")])

@@ -21,7 +21,7 @@ import torch_parity as tp
 tp.limit_threads()
 
 
-@pytest.mark.parametrize("name", ["box", "sponza_small"])
+@pytest.mark.parametrize("name", ["box", "sponza_small", "duck", "helmet", "flythrough"])
 def test_flatten_leaves_match_jax(name):
     leaves, _meta = tp.torch_leaves(name)
     expected = tp.jax_leaves(name)
@@ -33,7 +33,7 @@ def test_flatten_leaves_match_jax(name):
         np.testing.assert_array_equal(got, want, err_msg=field)
 
 
-@pytest.mark.parametrize("name", ["box", "sponza_small"])
+@pytest.mark.parametrize("name", ["box", "sponza_small", "duck", "helmet", "flythrough"])
 def test_scene_meta_matches_jax(name):
     _leaves, meta = tp.torch_leaves(name)
     _scene, want = tp.jax_scene(name)

@@ -120,14 +120,14 @@ def jax_config(msaa: int = 4, width: int = WIDTH, height: int = HEIGHT,
                         shade_skip_mode=False, peel_layers=peel_layers, **kw)
 
 
-def cameras(width: int = WIDTH, height: int = HEIGHT):
-    """(JAX camera, port camera) at the same pose."""
+def cameras(width: int = WIDTH, height: int = HEIGHT,
+            pose=(CAMERA_POSITION, CAMERA_DIRECTION)):
+    """(JAX camera, port camera) at the same pose (position, direction)."""
     from vktf_tpu.mathx import Camera as JCamera, ViewFrustumParams as JVF
     from vktf_tpu_torch.mathx import Camera as TCamera, ViewFrustumParams as TVF
 
     args = (np.radians(45.0), width / height, 0.1, 1.0e6)
-    return (JCamera(CAMERA_POSITION, CAMERA_DIRECTION, JVF(*args)),
-            TCamera(CAMERA_POSITION, CAMERA_DIRECTION, TVF(*args)))
+    return JCamera(*pose, JVF(*args)), TCamera(*pose, TVF(*args))
 
 
 @functools.lru_cache(maxsize=None)
@@ -464,3 +464,46 @@ def pack_table(table) -> np.ndarray:
 def pool_u16(pool) -> np.ndarray:
     """The port's (P, 64) i32 texel pool as the JAX package's (P, 128) u16."""
     return np.ascontiguousarray(np.asarray(pool)).view(np.uint16)
+
+
+def assert_frames_close(got, want, shape) -> None:
+    """The frame budget of the port's frame parity tests: one u8 step on
+    at most 0.5% of the pixels."""
+    assert got.shape == want.shape == shape
+    assert got.dtype == want.dtype == np.uint8
+    diff = np.abs(got.astype(np.int16) - want).max(axis=0)
+    assert diff.max() <= 1, int(diff.max())
+    assert (diff > 0).mean() <= 5e-3, float((diff > 0).mean())
+
+
+def sample_rate_frames(name: str, width: int, height: int, **kw):
+    """(port Scene, its frame, the JAX program's frame) of one scene at
+    sample rate and 4x MSAA, from the parity tests' camera; kw are
+    RenderConfig fields both packages have."""
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.scene.scene import Scene
+
+    scene, _meta = jax_scene(name)
+    jcam, tcam = cameras(width, height)
+    prog = jax_program(name, 4, width=width, height=height, shading_rate="sample", **kw)
+    want = np.asarray(prog(scene, jcam.view_projection_transform, jcam.position))
+    port = Scene(torch_assets(name),
+                 RenderConfig(width=width, height=height, msaa_samples=4,
+                              shading_rate="sample", **kw),
+                 camera=tcam, device="cpu")
+    return port, port.render_still(), want
+
+
+def check_sample_frame(name, width, height, kw, form, layers):
+    """The port's sample-rate frame within the budget of JAX's, through
+    the expected shade form at the expected K, and not the pixel-rate
+    frame."""
+    port, got, want = sample_rate_frames(name, width, height, **kw)
+    prog = port.frame_program
+    assert (prog.form.texels, prog.form.taps, prog.layers) == (*form, layers)
+    assert (want.max(axis=0) > 0).mean() > 0.5
+    assert_frames_close(got, want, (3, height, width))
+    pixel = type(port).from_render_scene(
+        port.render_scene, port.meta, port.config.replace(shading_rate="pixel"),
+        camera=port.camera).render_still()
+    assert (pixel != got).any(axis=0).mean() > 0.01

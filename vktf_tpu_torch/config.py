@@ -1,13 +1,14 @@
 """Render configuration of the PyTorch + CUDA port.
 
-The counterpart of ``vktf_tpu/config.py`` for the slice the port renders:
-pixel-rate shading, K = 1..8 depth-peel layers (one for opaque scenes, the
-scene's estimate or ``peel_layers`` for MASK/BLEND ones), every texture
-configuration of the JAX frame program (the fused-mip or two-gather pool,
-per-slot samplers, 1/2/4/8 anisotropic taps, the attrs boundary) and the
-exact planar RGB present. Only the fields this pipeline honours exist here,
-and an explicit value it cannot honour raises instead of falling back
-silently.
+The counterpart of ``vktf_tpu/config.py`` for what the port renders:
+pixel- or sample-rate shading, K = 1..8 depth-peel layers (one for opaque
+scenes, the scene's estimate or ``peel_layers`` for MASK/BLEND ones), every
+texture configuration of the JAX frame program (the fused-mip or two-gather
+pool, per-slot samplers, 1/2/4/8 anisotropic taps, the attrs boundary) and
+the present encodings (the exact planar RGB frame, the yuv420 pack and the
+2x/4x preview downsample). Only the fields this pipeline honours exist
+here, and an explicit value it cannot honour raises instead of falling
+back silently.
 """
 
 from __future__ import annotations
@@ -92,10 +93,15 @@ class RenderConfig:
     # (SceneMeta.peel_layers: 1 + translucent instances, at most
     # PEEL_LAYERS_MAX); an explicit 1..8 forces K.
     peel_layers: Optional[int] = None
-    # Only "pixel" (shade once per pixel, resolve by coverage) is ported.
+    # "pixel": shade once per pixel at its centre and resolve by sample
+    # coverage; "sample": shade every MSAA sample at its own position,
+    # composite each, then average over the samples.
     shading_rate: str = "pixel"
-    # Only the exact planar (3, H, W) u8 frame is ported.
+    # Device-side present encoding (ops/present.py): "rgb" the planar
+    # (3, H, W) u8 frame, "yuv420" the packed BT.601 4:2:0 bytes.
     present_format: str = "rgb"
+    # Preview stream: a box downsample of the presented frame by 1, 2 or 4
+    # (Scene.render_still still returns the exact full-size frame).
     present_scale: int = 1
 
     def __post_init__(self) -> None:
@@ -104,12 +110,19 @@ class RenderConfig:
                              f"got {self.msaa_samples}")
         if self.width <= 0 or self.height <= 0:
             raise ValueError("render target must be non-empty")
-        if self.shading_rate != "pixel":
-            raise ValueError(f"shading_rate {self.shading_rate!r} is not "
-                             "ported; only 'pixel' is")
-        if self.present_format != "rgb" or self.present_scale != 1:
-            raise ValueError("only present_format='rgb', present_scale=1 is "
-                             "ported")
+        if self.shading_rate not in ("pixel", "sample"):
+            raise ValueError(f"unknown shading_rate {self.shading_rate!r}")
+        if self.present_format not in ("rgb", "yuv420"):
+            raise ValueError(f"unknown present_format {self.present_format!r}")
+        if self.present_scale not in (1, 2, 4):
+            raise ValueError(f"present_scale must be 1, 2 or 4, got {self.present_scale}")
+        if self.width % self.present_scale or self.height % self.present_scale:
+            raise ValueError("present_scale must divide the frame dimensions, got "
+                             f"{self.width}x{self.height} / {self.present_scale}")
+        if self.present_format == "yuv420" and (
+                (self.width // self.present_scale) % 2
+                or (self.height // self.present_scale) % 2):
+            raise ValueError("yuv420 present requires even (preview) width and height")
         th, tw = self.tile_shape
         bh, bw = RASTER_BLOCK
         if th <= 0 or tw <= 0 or th % bh or tw % bw:

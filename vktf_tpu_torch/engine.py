@@ -16,7 +16,9 @@ Counterpart of ``vktf_tpu/engine.py`` (reference: src/engine/engine.cppm):
     recorded after it; once MAX_RENDER_FRAMES frames are outstanding,
     render waits on the oldest frame's event alone and presents that
     frame. It never synchronizes the device. A pinned buffer goes back to
-    the ring only after the window has consumed its frame.
+    the ring only after the window has consumed its frame. A frame in a
+    present encoding (a preview or yuv420 config) is copied as encoded and
+    decoded on the host before the window (``_to_presentable``).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from vktf_tpu_torch.config import MAX_RENDER_FRAMES, RenderConfig
 from vktf_tpu_torch.loaders.gltf import load_gltf
 from vktf_tpu_torch.log import Log, default_log
+from vktf_tpu_torch.ops.present import decode_present
 from vktf_tpu_torch.runtime.cache import enable_persistent_cache
 from vktf_tpu_torch.scene.flatten import decode_textures, flatten_assets_numpy, scene_from_numpy
 from vktf_tpu_torch.scene.scene import Scene
@@ -164,10 +167,18 @@ class Engine:
         with annotate("engine.present"):
             # present copies the planar frame into the window's own
             # interleaved RGBA array, so the buffer is free afterwards
-            self.window.present(host.numpy())
+            self.window.present(self._to_presentable(host.numpy()))
         if done is not None:
             self._free_buffers.append(host)
         self.frame_timer.tick()
+
+    def _to_presentable(self, frame):
+        """The host decode of a device present encoding (ops/present.py):
+        the yuv420 unpack at preview resolution, then the nearest upsample
+        back to the window size under the preview stream."""
+        if self.config.present_format != "rgb" or self.config.present_scale != 1:
+            return decode_present(frame, self.config)
+        return frame
 
     def wait_idle(self) -> None:
         """Present every frame still in flight (the deviceWaitIdle analogue,

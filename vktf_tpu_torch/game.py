@@ -16,8 +16,9 @@ line. It renders on the card; ``start(..., device="cpu")`` and
 ``main(argv, device="cpu")`` run the kernels' plain versions on the CPU.
 Options the port cannot honour raise instead of falling back: ``--backend
 tiled|dense`` (the port has the streaming raster alone, which ``auto`` and
-``pallas`` name), ``--mesh`` (multi-device), ``--present-format yuv420``,
-``--present-scale 2|4`` and ``--preview`` (the preview present stream).
+``pallas`` name) and ``--mesh`` (multi-device). ``--preview`` is
+``--present-format yuv420`` at ``--present-scale`` 2 or more, as in the JAX
+viewer; ``p`` still saves the exact full-size frame.
 
     python -m vktf_tpu_torch.models.export --preset sponza --out assets
     python -m vktf_tpu_torch.game assets/*.gltf --frames 32
@@ -235,10 +236,14 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> int:
     args = parser.parse_args(list(sys.argv[1:] if argv is None else argv))
     try:
         _refuse_unported(args)
+        present_format, present_scale = args.present_format, args.present_scale
+        if args.preview:
+            present_format, present_scale = "yuv420", max(2, present_scale)
         config = RenderConfig(
             width=args.width, height=args.height, msaa_samples=args.msaa,
             max_anisotropy=args.anisotropy, aniso_taps=args.aniso_taps,
             peel_layers=args.peel_layers,
+            present_format=present_format, present_scale=present_scale,
         )
         start(
             args.assets,
@@ -269,10 +274,6 @@ def _refuse_unported(args) -> None:
     if args.mesh:
         raise NotImplementedError("--mesh: the multi-device frame path is not ported "
                                   "(ROADMAP Queue 1 #8)")
-    if args.preview or args.present_format != "rgb" or args.present_scale != 1:
-        raise NotImplementedError(
-            "--preview, --present-format yuv420 and --present-scale 2|4 are not "
-            "ported (ROADMAP Queue 1 #3): the port presents the exact RGB frame")
 
 
 if __name__ == "__main__":

@@ -211,8 +211,10 @@ def export_preset(preset: str, out_dir: Path, texture_format: str = "basis",
 
 
 def main(argv=None) -> int:
+    from vktf_tpu_torch.models.scenes import PRESETS
+
     parser = argparse.ArgumentParser(prog="vktf_tpu_torch.models.export")
-    parser.add_argument("--preset", default="sponza", choices=["box", "sponza"])
+    parser.add_argument("--preset", default="sponza", choices=sorted(PRESETS))
     parser.add_argument("--out", default="demo_assets")
     parser.add_argument("--texture-format", default="basis",
                         choices=["basis", "rgba"])

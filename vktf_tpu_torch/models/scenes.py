@@ -1,4 +1,5 @@
-"""Procedural benchmark scenes: the ``box`` and ``sponza`` presets.
+"""Procedural benchmark scenes: the five presets of the bench (box, duck,
+helmet, sponza and the multi-asset flythrough).
 
 Counterpart of ``vktf_tpu/models/scenes.py``, same generators and the same
 seeds, so the geometry, materials, lights and texels are identical to the
@@ -310,6 +311,35 @@ def box_asset() -> Asset:
     return b.asset
 
 
+def duck_asset() -> Asset:
+    """One textured mesh (the Duck stand-in: a textured sphere)."""
+    rng = np.random.default_rng(7)
+    b = _AssetBuilder("duck")
+    mat = _make_material("duck-skin", rng, kind="checker",
+                         base_rgb=(0.9, 0.75, 0.1), roughness=0.6)
+    mesh = b.add_mesh(uv_sphere_mesh(0.5, rings=32, sectors=64), mat, "duck")
+    b.add_node(mesh=mesh)
+    b.add_light("directional", (1, 1, 1), _look_dir_transform((0.2, -0.7, 0.6)))
+    return b.asset
+
+
+def helmet_asset() -> Asset:
+    """Full PBR metallic-roughness with normal mapping (the DamagedHelmet
+    stand-in); one directional and one point light."""
+    rng = np.random.default_rng(11)
+    b = _AssetBuilder("helmet")
+    metal = _make_material("helmet-metal", rng, kind="noise",
+                           base_rgb=(0.35, 0.33, 0.3), metallic=1.0,
+                           roughness=0.35, normal_strength=3.0)
+    glass = _flat_material("visor", (0.05, 0.05, 0.08, 1.0), metallic=0.9, roughness=0.1)
+    b.add_node(mesh=b.add_mesh(uv_sphere_mesh(0.5, rings=48, sectors=96), metal, "shell"))
+    b.add_node(mesh=b.add_mesh(cylinder_mesh(0.25, 0.2, sectors=48), glass, "visor"),
+               transform=_trs((0, 0, 0.35), rotation_y=0.0, scale=(1, 1, 0.5)))
+    b.add_light("directional", (1, 1, 1), _look_dir_transform((0.4, -0.6, 0.6)))
+    b.add_light("point", (8, 7.5, 7), _trs((2, 2, 2)))
+    return b.asset
+
+
 def sponza_like_asset(
     *,
     seed: int = 42,
@@ -413,6 +443,54 @@ def sponza_like_asset(
     return b.asset
 
 
+def curtains_asset(seed: int = 5) -> Asset:
+    """The flythrough's second asset: twelve wavy drapes above the
+    courtyard."""
+    rng = np.random.default_rng(seed)
+    b = _AssetBuilder("curtains")
+    mats = [
+        _make_material(f"drape-{i}", rng, kind="noise", base_rgb=rgb, roughness=0.9)
+        for i, rgb in enumerate([(0.55, 0.12, 0.15), (0.15, 0.25, 0.5)])
+    ]
+    curtain = _wavy_plane(1.0, segments=32, amplitude=0.18, waves=3.0)
+    meshes = [b.add_mesh(curtain, m, "drape") for m in mats]
+    for i in range(12):
+        x = -11 + 2 * i
+        b.add_node(
+            mesh=meshes[i % 2],
+            transform=_trs((x, 6.2, 0), 0.0) @ _rot_x(np.pi / 2)
+            @ _trs(scale=(1.8, 1, 3.2)),
+        )
+    return b.asset
+
+
+def ivy_asset(seed: int = 9, sprigs: int = 160) -> Asset:
+    """The flythrough's third asset: many small leaf planes on the walls."""
+    rng = np.random.default_rng(seed)
+    b = _AssetBuilder("ivy")
+    leaf_mat = _make_material("ivy-leaf", rng, kind="noise",
+                              base_rgb=(0.12, 0.4, 0.1), roughness=0.8, tex_size=128)
+    leaf = plane_mesh(size=1.0, segments=4, normal_axis="z")
+    leaf_mesh = b.add_mesh(leaf, leaf_mat, "leaf")
+    for _ in range(sprigs):
+        wall = int(rng.integers(0, 4))
+        t = float(rng.uniform(-0.45, 0.45))
+        y = float(rng.uniform(0.5, 7.5))
+        s = float(rng.uniform(0.3, 0.9))
+        if wall == 0:
+            pos, rot = (t * 24, y, -5.9), 0.0
+        elif wall == 1:
+            pos, rot = (t * 24, y, 5.9), np.pi
+        elif wall == 2:
+            pos, rot = (-11.9, y, t * 12), np.pi / 2
+        else:
+            pos, rot = (11.9, y, t * 12), -np.pi / 2
+        b.add_node(mesh=leaf_mesh,
+                   transform=_trs(pos, rot + float(rng.uniform(-0.4, 0.4)),
+                                  (s, s, s)))
+    return b.asset
+
+
 def set_blend(assets):
     """The translucent sponza: make the curtain and clutter materials BLEND
     with base-colour alpha 0.5 (16 + 96 instances in the full preset, so the
@@ -465,13 +543,16 @@ SAMPLER_PRESETS = {
 
 PRESETS = {
     "box": lambda: [box_asset()],
+    "duck": lambda: [duck_asset()],
+    "helmet": lambda: [helmet_asset()],
     "sponza": lambda: [sponza_like_asset()],
+    "flythrough": lambda: [sponza_like_asset(), curtains_asset(), ivy_asset()],
 }
 
 
 def build_preset(name: str) -> list[Asset]:
     """Build a named preset as a list of Assets."""
     if name not in PRESETS:
-        raise ValueError(f"unknown or unported preset {name!r}; choose from "
+        raise ValueError(f"unknown preset {name!r}; choose from "
                          f"{sorted(PRESETS)}")
     return PRESETS[name]()

@@ -1,9 +1,9 @@
 """The frame program: scene update, setup, stream order, raster, shade
 table, per-pixel winner, shade and resolve, on one device.
 
-Counterpart of ``vktf_tpu/ops/pipeline.py`` ``PallasFrameProgram`` at the
-configuration the port renders: pixel-rate shading, K = 1..8 depth-peel
-layers, every texture configuration. K is
+Counterpart of ``vktf_tpu/ops/pipeline.py`` ``PallasFrameProgram``: pixel-
+or sample-rate shading, K = 1..8 depth-peel layers, every texture
+configuration, every present encoding. K is
 ``config.resolved_peel_layers(meta.peel_layers)``: 1 for opaque scenes,
 1 + the translucent instances (at most 8) for MASK/BLEND ones. The shade
 form (``shade_form``) follows the JAX program's routing
@@ -37,7 +37,18 @@ form. Stages, in order:
      composite over the clear colour, the coverage resolve and the sRGB
      encode (``composite_resolve``; XLA ops outside any kernel in the JAX
      package, too);
-  8. present: unpack the bytes and crop the tile padding (``ops/present.py``).
+  8. present: unpack the bytes, crop the tile padding and apply the
+     configuration's encoding (``ops/present.py``: the exact planar frame,
+     the preview downsample, the yuv420 pack).
+
+Sample-rate shading (``shading_rate="sample"``, the JAX program's
+non-tiled path, ``pallas_shade_resolve``'s sample branch) replaces stages
+6 and 7 at every K: the raster's (K, S, H, W) ids, flattened sample-major,
+go through the layer shade kernel of the form at each sample's own
+position (the pixel plus its ``SAMPLE_OFFSETS`` entry), the layers are
+composited over the clear colour per sample, and the samples are averaged
+(``composite_samples``). It has no per-pixel winner and no attrs boundary,
+as the JAX path has neither.
 
 Nothing on the frame path waits for the card: the camera reaches it
 through pinned memory with a non-blocking copy, the clear colour is made
@@ -61,7 +72,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vktf_tpu_torch.config import PEEL_LAYERS_MAX, RenderConfig
+from vktf_tpu_torch.config import PEEL_LAYERS_MAX, SAMPLE_OFFSETS, RenderConfig
 from vktf_tpu_torch.ops import present, raster, setup_kernel, shade_kernel, shade_table
 from vktf_tpu_torch.ops.fmath import f32, fma
 from vktf_tpu_torch.ops.vertex import propagate_transforms
@@ -123,20 +134,47 @@ def pixel_winner(ids, depth):
     return tri.reshape(*ids.shape[:sample_dim], -1), frac.reshape(-1)
 
 
-def composite_resolve(rgb, alpha, frac, background):
-    """The depth-peel tail (vktf_tpu/ops/pipeline.py:502-509): the K shaded
-    layers composited front to back over the clear colour, the coverage
-    resolve, sRGB encode and u8 quantization, packed r | g << 8 | b << 16.
-    rgb (K, 3, N), alpha (K, N), frac (N,), background (3,) -> (N,) i32.
-    XLA fuses each a * b + c * d with the left product (ops/fmath.py)."""
-    one, zero = f32(1.0, rgb), f32(0.0, rgb)
-    bg = background.to(torch.float32)[:, None]
+def _composite(rgb, alpha, bg):
+    """The K shaded layers composited front to back over the clear colour
+    bg (3, 1): (3, N). XLA fuses each a * b + c * d with the left product
+    (ops/fmath.py)."""
+    one = f32(1.0, rgb)
     comp = bg.expand(rgb.shape[1:])
     for l in reversed(range(rgb.shape[0])):
         comp = fma(rgb[l], alpha[l], comp * (one - alpha[l]))
-    resolved = fma(comp, frac, bg * (one - frac))
+    return comp
+
+
+def _pack_srgb(resolved):
+    """Clamp, sRGB encode and u8 quantization of (3, N) linear values,
+    packed r | g << 8 | b << 16: (N,) i32."""
+    zero, one = f32(0.0, resolved), f32(1.0, resolved)
     u8 = shade_kernel.linear_to_srgb_u8(torch.minimum(torch.maximum(resolved, zero), one))
     return u8[0] | (u8[1] << 8) | (u8[2] << 16)
+
+
+def composite_resolve(rgb, alpha, frac, background):
+    """The depth-peel tail (vktf_tpu/ops/pipeline.py:502-509): the layers'
+    composite, the coverage resolve and the sRGB encode, packed.
+    rgb (K, 3, N), alpha (K, N), frac (N,), background (3,) -> (N,) i32."""
+    bg = background.to(torch.float32)[:, None]
+    comp = _composite(rgb, alpha, bg)
+    return _pack_srgb(fma(comp, frac, bg * (f32(1.0, rgb) - frac)))
+
+
+def composite_samples(rgb, alpha, background, samples: int):
+    """The sample-rate tail (vktf_tpu/ops/pipeline.py:703-714): each
+    sample's layers composited over the clear colour, the mean over the
+    samples (summed in sample order, then scaled by 1/S, which equals the
+    division by a power of two), the sRGB encode, packed.
+    rgb (K, 3, S*N) and alpha (K, S*N) sample-major, background (3,) ->
+    (N,) i32."""
+    comp = _composite(rgb, alpha, background.to(torch.float32)[:, None])
+    comp = comp.reshape(3, samples, -1)
+    total = comp[:, 0]
+    for s in range(1, samples):
+        total = total + comp[:, s]
+    return _pack_srgb(total * f32(1.0 / samples, rgb))
 
 
 def pixel_centers(height: int, width: int, device):
@@ -145,6 +183,19 @@ def pixel_centers(height: int, width: int, device):
                             torch.arange(width, device=device), indexing="ij")
     return ((xs.float() + 0.5).reshape(-1).contiguous(),
             (ys.float() + 0.5).reshape(-1).contiguous())
+
+
+def sample_centers(height: int, width: int, msaa_samples: int, device):
+    """Every sample's position (sx, sy), each (S*H*W,) f32, sample-major
+    (the order of the raster's flattened (S, H, W) ids): the pixel index
+    plus the sample's SAMPLE_OFFSETS entry (k / 16 for integer k, so each
+    float32 sum is exact)."""
+    ys, xs = torch.meshgrid(torch.arange(height, device=device),
+                            torch.arange(width, device=device), indexing="ij")
+    xs, ys = xs.float(), ys.float()
+    offsets = SAMPLE_OFFSETS[msaa_samples]
+    return (torch.stack([xs + ox for ox, _ in offsets]).reshape(-1),
+            torch.stack([ys + oy for _, oy in offsets]).reshape(-1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,10 +213,12 @@ def shade_form(config: RenderConfig, meta: SceneMeta) -> ShadeForm:
     """The JAX frame program's choice for this configuration and scene:
     its XLA form shades mixed-sampler scenes per slot and the taps of a
     two-gather scene (attrs boundary included), its attrs kernels the
-    attrs boundary at one tap, its fused or classic kernel the rest."""
+    attrs boundary at one tap, its fused or classic kernel the rest. At
+    sample rate the JAX program has no attrs form (``_shade_layer_fn``), so
+    the attrs boundary is not taken there."""
     fused = config.resolved_fused_pool(mirror_wrap=meta.mirror_wrap,
                                        mixed_samplers=meta.mixed_samplers)
-    attrs = config.shade_attrs_boundary
+    attrs = config.shade_attrs_boundary and config.shading_rate == "pixel"
     taps = config.aniso_taps
     if meta.mixed_samplers:
         return ShadeForm("per_slot", taps)
@@ -199,9 +252,10 @@ class _StageTimer:
 
 
 class FrameProgram:
-    """Renders one (3, H, W) u8 frame per call from a RenderScene and a
+    """Renders one presented frame per call from a RenderScene and a
     camera, on the scene's device (plain versions of every kernel on the
-    CPU, the CUDA kernels on a card)."""
+    CPU, the CUDA kernels on a card): (3, H, W) u8, or (3, H/s, W/s) at
+    present_scale s, or the flat yuv420 bytes."""
 
     def __init__(self, meta: SceneMeta, config: RenderConfig):
         self.meta = meta
@@ -211,6 +265,8 @@ class FrameProgram:
             raise ValueError(f"the scene asks for {self.layers} peel layers; the raster "
                              f"kernel keeps 1..{PEEL_LAYERS_MAX}")
         self.form = shade_form(config, meta)
+        self._encode = present.make_present_encoder(config)
+        self._samples = len(SAMPLE_OFFSETS[config.msaa_samples])
         self._scene_key = None
         self._scene_state = None
         self._perm = None
@@ -268,7 +324,8 @@ class FrameProgram:
         vp, cam = staged[:16].view(4, 4), staged[16:19]
         ph, pw = cfg.padded_height, cfg.padded_width
         if self._centers is None or self._centers[0].device != dev:
-            self._centers = pixel_centers(ph, pw, dev)
+            self._centers = (sample_centers(ph, pw, cfg.msaa_samples, dev)
+                             if cfg.shading_rate == "sample" else pixel_centers(ph, pw, dev))
             self._background = to_device(cfg.clear_color[:3], dev)
         background = self._background
 
@@ -287,9 +344,17 @@ class FrameProgram:
             table = shade_table.build_shade_table(
                 setup["edge9"], scene.tri_corner, scene.tri_static_cols,
                 setup["anchor2"], inst_rows, tri_instance)
+        form, pool = self.form, scene.quad_pool
+        if cfg.shading_rate == "sample":
+            with self._stage("shade"):
+                rgb, alpha = shade_kernel.shade_layer(
+                    ids.reshape(self.layers, -1), *self._centers, table, pool, cam, lights,
+                    cfg.max_anisotropy, form.texels, form.taps)
+            with self._stage("composite"):
+                packed = composite_samples(rgb, alpha, background, self._samples)
+            return self._present(packed)
         with self._stage("winner"):
             tri, frac = pixel_winner(ids, depth)
-        form, pool = self.form, scene.quad_pool
         if form.attrs:
             with self._stage("attrs"):
                 attrs = shade_kernel.fragment_attrs(tri, *self._centers, table,
@@ -314,6 +379,8 @@ class FrameProgram:
                         cfg.max_anisotropy, form.texels, form.taps)
             with self._stage("composite"):
                 packed = composite_resolve(rgb, alpha, frac, background)
+        return self._present(packed)
+
+    def _present(self, packed: torch.Tensor) -> torch.Tensor:
         with self._stage("present"):
-            frame = present.encode_rgb(packed, cfg)
-        return frame
+            return self._encode(present.encode_rgb(packed, self.config))

@@ -75,6 +75,7 @@ class Scene:
             ),
         )
         self.frame_program = frame_program(meta, config)
+        self._still_program = None
         log.info(f"Scene ready: {meta.num_triangles} tris, {meta.num_vertices} verts, "
                  f"{meta.num_instances} instances, {meta.num_lights} lights")
 
@@ -83,15 +84,25 @@ class Scene:
         return self.meta.num_lights
 
     def render_async(self) -> torch.Tensor:
-        """Enqueue one frame; returns the (3, H, W) uint8 device tensor
-        without waiting for the device (nothing on the frame path
+        """Enqueue one frame; returns the presented frame as a device tensor
+        (``FrameProgram``: the (3, H, W) uint8 frame or its configured
+        encoding) without waiting for the device (nothing on the frame path
         synchronizes with the card, so several frames can be in flight)."""
         return self.frame_program(self.render_scene,
                                   self.camera.view_projection_transform,
                                   self.camera.position)
 
     def render_still(self) -> np.ndarray:
-        """The exact (3, H, W) uint8 frame at the current camera, on the
-        host (the port presents only the exact planar RGB frame, so a still
-        is the presented frame)."""
-        return self.render_async().cpu().numpy()
+        """The exact full-size (3, H, W) uint8 frame at the current camera,
+        on the host, whatever the present encoding: under a preview or
+        yuv420 configuration it renders through the registry's program for
+        present_format="rgb", present_scale=1 (built once per scene), the
+        same pixels as an exact render."""
+        program = self.frame_program
+        if self.config.present_format != "rgb" or self.config.present_scale != 1:
+            if self._still_program is None:
+                self._still_program = frame_program(
+                    self.meta, self.config.replace(present_format="rgb", present_scale=1))
+            program = self._still_program
+        return program(self.render_scene, self.camera.view_projection_transform,
+                       self.camera.position).cpu().numpy()
