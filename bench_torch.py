@@ -29,20 +29,28 @@ build (or load from vktf_tpu_torch/_build/) plus the first frame.
 It runs on the card: with no card it prints an error line and exits 1.
 VKTF_FORCE_CPU=1 asks for the kernels' plain versions on the CPU instead
 (platform/backend "cpu/plain"). --backend takes pallas (the streaming
-raster) only, and --mesh is not ported: both print the error line and
-exit 1.
+raster) only; another prints the error line and exits 1.
+
+--mesh GP,SP measures the multi-device frame path (vktf_tpu_torch.parallel)
+under torchrun, one process per device (one card a rank under NCCL, gloo
+with VKTF_FORCE_CPU): every rank renders every frame, rank 0 prints the
+lines (with "mesh": "gpGx spS"), and every decision the budget makes is
+rank 0's. Without the launcher's environment a mesh of more than one rank
+prints the error line and exits 1.
 
 Usage:
     python3 bench_torch.py                 # headline: sponza @1080p, 4x MSAA
     python3 bench_torch.py --all           # five presets + sponza aniso_taps=2
     VKTF_FORCE_CPU=1 python3 bench_torch.py --preset box --width 192 \\
         --height 96 --msaa 1 --frames 2
+    torchrun --standalone --nproc-per-node 4 bench_torch.py --mesh 2,2
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import signal
@@ -86,6 +94,7 @@ _state = {
     "partial": None,             # best-so-far headline dict (not yet printed)
     "printed": 0,                # completed JSON lines already on stdout
     "done": False,               # normal completion reached
+    "quiet": False,              # a mesh rank other than 0 prints no line
 }
 
 
@@ -109,7 +118,8 @@ def _set_partial(line: dict) -> None:
 
 def _print_line(line: dict) -> None:
     with _emit_lock:
-        print(json.dumps(line), flush=True)
+        if not _state["quiet"]:
+            print(json.dumps(line), flush=True)
         _state["printed"] += 1
         _state["partial"] = None
 
@@ -128,7 +138,7 @@ def _flush_partial(reason: str) -> None:
                 "unit": "fps",
                 "vs_baseline": 0.0,
             }
-        if line is not None:
+        if line is not None and not _state["quiet"]:
             line = dict(line)
             line["partial"] = reason
             line["phase"] = _state["phase"]
@@ -171,8 +181,9 @@ def _on_signal(signum, frame) -> None:  # pragma: no cover - signal path
 
 
 def bench_device():
-    """The card (cuda:0), or the CPU when VKTF_FORCE_CPU asks for it; with
-    no card and no such request this raises."""
+    """The card (cuda:0, or the rank's card under a launcher), or the CPU
+    when VKTF_FORCE_CPU asks for it; with no card and no such request this
+    raises."""
     import torch
 
     if os.environ.get("VKTF_FORCE_CPU"):
@@ -180,7 +191,7 @@ def bench_device():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: bench_torch.py measures the card; set "
                            "VKTF_FORCE_CPU=1 to run the plain versions on the CPU")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
 
 
 def _build_kernels() -> None:
@@ -196,14 +207,18 @@ def run_bench(preset: str, width: int, height: int, msaa: int,
               backend: str | None = None, depth: int = 4,
               anisotropy: float = 16.0, aniso_taps: int = 1,
               present_format: str = "rgb",
-              mesh_shape: tuple[int, int] | None = None,
+              mesh=None,
               emit=None):
     """Measure one config on bench_device(). Calls ``emit(stats_dict)``
     after every refinement so the watchdog always has the latest valid
-    number to flush."""
+    number to flush. mesh: a parallel.RenderMesh (every rank calls this
+    alike; the budget's decisions are rank 0's)."""
     emit = emit or (lambda stats: None)
-    if mesh_shape is not None:
-        raise NotImplementedError("--mesh: the multi-device frame path is not ported")
+
+    def agree(flag: bool) -> bool:
+        """Rank 0's decision on every rank of the mesh."""
+        return flag if mesh is None else bool(mesh.broadcast_host([float(flag)])[0])
+
     if backend not in (None, "pallas"):
         raise NotImplementedError(f"--backend {backend} is not ported: the port has the "
                                   "streaming raster alone (pallas)")
@@ -242,7 +257,7 @@ def run_bench(preset: str, width: int, height: int, msaa: int,
     _mark(f"{preset}: device up", secs=round(session_init_s, 1), platform=platform)
 
     t0 = time.time()
-    scene = Scene(build_preset(preset), config, camera=camera, device=dev)
+    scene = Scene(build_preset(preset), config, camera=camera, device=dev, mesh=mesh)
     sync()
     build_s = time.time() - t0
     _mark(f"{preset}: scene built", secs=round(build_s, 1), tris=scene.meta.num_triangles)
@@ -344,7 +359,7 @@ def run_bench(preset: str, width: int, height: int, msaa: int,
 
     loop_cost = frames * dt + 1.0
     n_loops = 0
-    while n_loops < 3 and _remaining() > loop_cost + 30.0:
+    while n_loops < 3 and agree(_remaining() > loop_cost + 30.0):
         dt = min(dt, device_loop(frames))
         n_loops += 1
         emit(stats_from(dt, quality=f"best-of-{n_loops + 1}"))
@@ -354,13 +369,13 @@ def run_bench(preset: str, width: int, height: int, msaa: int,
     present_dt = None
     dt2 = None
     present_cost = frames * (dt + 0.04) + 1.0
-    if _remaining() > 2 * present_cost + 30.0:
+    if agree(_remaining() > 2 * present_cost + 30.0):
         present_dt = min(loop(frames), loop(frames))
         emit(stats_from(dt, present_dt, quality=f"best-of-{n_loops + 1}"))
         _mark(f"{preset}: present loops done", present_ms=round(present_dt * 1e3, 3))
         if depth == 2:
             dt2 = present_dt
-        elif _remaining() > 2 * present_cost + 30.0:
+        elif agree(_remaining() > 2 * present_cost + 30.0):
             dt2 = min(loop(frames, depth=2), loop(frames, depth=2))
             _mark(f"{preset}: interactive loops done", interactive_ms=round(dt2 * 1e3, 3))
     else:
@@ -372,13 +387,13 @@ def run_bench(preset: str, width: int, height: int, msaa: int,
     preview_scale = None
     if (dt2 is not None and config.present_scale == 1 and config.present_format == "rgb"
             and config.width % 4 == 0 and config.height % 4 == 0
-            and _remaining() > 2 * present_cost + 60.0):
+            and agree(_remaining() > 2 * present_cost + 60.0)):
         scales = [2]
         if config.width >= 3840 and config.width % 8 == 0 and config.height % 8 == 0:
             scales.append(4)
         for scale in scales:
             preview_fn = frame_program(scene.meta, config.replace(present_format="yuv420",
-                                                                  present_scale=scale))
+                                                                  present_scale=scale), mesh)
 
             def preview_render():
                 return preview_fn(scene.render_scene, scene.camera.view_projection_transform,
@@ -388,7 +403,7 @@ def run_bench(preset: str, width: int, height: int, msaa: int,
             preview_render().cpu()
             _mark(f"{preset}: preview program ready (scale {scale})",
                   secs=round(time.time() - t0, 1))
-            if _remaining() > 2 * present_cost + 30.0:
+            if agree(_remaining() > 2 * present_cost + 30.0):
                 p_dt = min(loop(frames, depth=2, render=preview_render),
                            loop(frames, depth=2, render=preview_render))
                 _mark(f"{preset}: preview loops done (scale {scale})",
@@ -397,6 +412,8 @@ def run_bench(preset: str, width: int, height: int, msaa: int,
                     preview_dt, preview_scale = p_dt, scale
 
     stats = stats_from(dt, present_dt, dt2, quality=f"best-of-{n_loops + 1}")
+    if mesh is not None:
+        stats["mesh"] = str(mesh)
     if preview_dt is not None:
         stats["preview_fps"] = 1.0 / preview_dt
         stats["preview_frame_ms"] = preview_dt * 1e3
@@ -472,7 +489,8 @@ def main() -> int:
                              "interactive rows (yuv420 = half the device->host "
                              "bytes; render fps unaffected)")
     parser.add_argument("--mesh", default=None, metavar="GP,SP",
-                        help="the sharded frame path (not ported)")
+                        help="the multi-device frame path over a (gp, sp) mesh of "
+                             "processes (under torchrun --nproc-per-node GP*SP)")
     parser.add_argument("--all", action="store_true")
     parser.add_argument("--budget", type=float, default=None,
                         help="wall-clock budget in seconds (same as env "
@@ -516,16 +534,29 @@ def main() -> int:
         return preset, args.width or width, args.height or height, args.msaa or msaa
 
     _mark("import torch")
-    try:
-        bench_device()
-    except RuntimeError as exc:
-        _print_line(_error_line(*job_config(jobs[0][0]), exc))
-        _state["done"] = True
-        return 1
+    with contextlib.ExitStack() as stack:
+        try:
+            mesh = None
+            dev = bench_device()
+            if mesh_shape is not None:
+                from vktf_tpu_torch.parallel.launch import launcher_mesh
 
+                mesh, _ = stack.enter_context(launcher_mesh(*mesh_shape, dev.type))
+                _state["quiet"] = mesh.rank != 0
+        except (RuntimeError, ValueError) as exc:
+            _print_line(_error_line(*job_config(jobs[0][0]), exc))
+            _state["done"] = True
+            return 1
+        return _run_jobs(args, jobs, job_config, mesh_shape, mesh)
+
+
+def _run_jobs(args, jobs, job_config, mesh_shape, mesh) -> int:
     code = 0
     for i, (preset, aniso_taps) in enumerate(jobs):
-        if i > 0 and _remaining() < 120.0:
+        out_of_budget = i > 0 and _remaining() < 120.0
+        if mesh is not None:
+            out_of_budget = bool(mesh.broadcast_host([float(out_of_budget)])[0])
+        if out_of_budget:
             _mark(f"skipping {preset}: budget exhausted", budget_left=round(_remaining()))
             break
         preset, width, height, msaa = job_config(preset)
@@ -540,7 +571,7 @@ def main() -> int:
                               backend=args.backend, depth=args.depth,
                               anisotropy=args.anisotropy, aniso_taps=aniso_taps,
                               present_format=args.present_format,
-                              mesh_shape=mesh_shape, emit=emit)
+                              mesh=mesh, emit=emit)
         except Exception as exc:  # a failed row reports and the next one runs
             _print_line(_error_line(preset, width, height, msaa, exc))
             code = 1

@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # sponza preset, 1920x1080, 4x MSAA
     python3 chip_smoke.py --small    # the 38k-triangle courtyard at 256x128 (the
                                      # presets and the bench at 256x128 too)
+    python3 chip_smoke.py --four-cards  # phase 15d alone, on four cards
 
 Needs one CUDA card and nvcc. In order, it:
   1. reports the card (nvidia-smi name and power limit);
@@ -87,7 +88,20 @@ Needs one CUDA card and nvcc. In order, it:
      entry timed with its bound, at K = 1 also held to its plain version;
  14. one bench_torch.run_bench("sponza", 1920, 1080, 4, frames=8) on the
      card, printing its JSON line (fps > 0 required);
- 15. checks the frames (shape, dtype, the share of pixels lit: 50% for
+ 15. the multi-device frame path (vktf_tpu_torch.parallel): a. the raster's
+     band offset: the second band of a (2, 2) mesh at K = 1 and K = 8 against
+     the full-frame raster's rows (ids and depth bit-equal) and against the
+     plain version at the band's shape; b. NCCL at world size 1 in this
+     process, the opaque sponza on a (1, 1) mesh driven as a path (its frame
+     equal to phase 4's bit for bit; frame times beside phase 4's: the
+     sharded program's own overhead); c. one spawn of 4 processes sharing
+     the card over gloo (parallel/launch.py), the opaque sponza on (2, 2),
+     (4, 1) and (1, 4), the translucent (K = 8) and mixed sponza on (2, 2),
+     each frame equal to its single-device frame bit for bit, the counters
+     zeroed and read on every rank, frame and stage times printed (4 ranks
+     on one card over gloo: not a scaling number); d. with 4 or more cards,
+     (2, 2) over NCCL, one card a rank, else a line saying it did not run;
+ 16. checks the frames (shape, dtype, the share of pixels lit: 50% for
      sponza paths, 5% for the single-object presets), saves them as .npy in
      the build directory (vktf_tpu_torch/_build/, not committed), and prints
      the kernels line, the card line and, last, {"ok": true, "device": {...}}.
@@ -371,6 +385,133 @@ def frame_stages(scn) -> dict:
                 setup=setup, stream=stream, table=table, ids=ids, tri=tri, frac=frac)
 
 
+def scene_leaves(rs) -> dict:
+    """A device scene's leaves as numpy (flatten.scene_from_numpy's input)."""
+    from vktf_tpu_torch.scene.flatten import SCENE_LEAVES
+
+    leaves = {f: getattr(rs, f).cpu().numpy() for f in SCENE_LEAVES}
+    leaves["quad_pool"] = leaves["quad_pool"].view(np.uint16)
+    return leaves
+
+
+def mesh_ranks(cases, inputs, frames: int, flight: int) -> dict:
+    """One rank of phase 15's spawns. Per case (tag, scene key, gp, sp): the
+    scene from `inputs` (its leaves' .npz and SceneMeta) on this rank's
+    card at the phase's configuration, one warm frame, then with the
+    counters zeroed `frames` synchronized frames (host clock), `flight`
+    frames with FRAMES_IN_FLIGHT in flight (none when 0), the still, the
+    counters, and one frame's stage times; every rank's counters are
+    gathered to each rank. Returns {tag: {...}} (rank 0's is the one kept)."""
+    import torch.distributed as dist
+
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
+    from vktf_tpu_torch.ops import pipeline, raster, setup_kernel, shade_kernel, shade_table
+    from vktf_tpu_torch.parallel import make_render_mesh
+    from vktf_tpu_torch.scene.flatten import scene_from_numpy
+    from vktf_tpu_torch.scene.scene import Scene
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kernels = [setup_kernel.KERNEL, raster.KERNEL, raster.KERNEL_LAYERS, shade_table.KERNEL,
+               *shade_kernel.KERNELS]
+    out = {}
+    for tag, key, gp, sp in cases:
+        path, meta, (width, height) = inputs[key]
+        with np.load(path) as z:
+            leaves = {k: z[k] for k in z.files}
+        config = RenderConfig(width=width, height=height, msaa_samples=4)
+        camera = Camera(*CAMERA, ViewFrustumParams(np.radians(45.0), width / height,
+                                                   0.1, 1.0e6))
+        scn = Scene.from_render_scene(scene_from_numpy(leaves, dev), meta, config, camera,
+                                      mesh=make_render_mesh(gp, sp))
+        scn.render_async()
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        frame_ms = []
+        for _ in range(frames):
+            t0 = time.perf_counter()
+            scn.render_async()
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        pending = collections.deque()
+        t0 = time.perf_counter()
+        for _ in range(flight):
+            if len(pending) == FRAMES_IN_FLIGHT:
+                pending.popleft().synchronize()
+            scn.render_async()
+            done = torch.cuda.Event()
+            done.record()
+            pending.append(done)
+        torch.cuda.synchronize()
+        flight_ms = (time.perf_counter() - t0) * 1e3 / flight if flight else None
+        still = scn.render_still()
+        launches = {k.name: k.launches for k in kernels if k.launches}
+        prog = scn.frame_program
+        prog.timer = pipeline._StageTimer()
+        scn.render_async()
+        torch.cuda.synchronize()
+        stages = prog.timer.millis()
+        prog.timer = None
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, launches)
+        out[tag] = {"still": still, "frame_ms": frame_ms, "flight_ms": flight_ms,
+                    "launches": every,
+                    "stages": stages, "layers": prog.layers, "form": str(prog.form)}
+        del scn, prog
+        torch.cuda.empty_cache()
+    return out
+
+
+MESH_CASES = [("opaque_2x2", "opaque", 2, 2), ("opaque_4x1", "opaque", 4, 1),
+              ("opaque_1x4", "opaque", 1, 4), ("translucent_2x2", "translucent", 2, 2),
+              ("mixed_2x2", "mixed", 2, 2)]
+
+
+def mesh_spawn(label: str, scenes: dict, size, backend: str, flight: int) -> collections.Counter:
+    """Phase 15's spawned paths: MESH_CASES on 4 ranks (`backend`: gloo, the
+    ranks sharing the card; nccl, one card a rank), each scene given as
+    (device scene leaves, SceneMeta, single-device still); every frame must
+    equal its scene's still bit for bit and every rank must launch setup,
+    raster, shade table and shade once a frame. Returns the launches."""
+    from vktf_tpu_torch.ops import _cuda
+    from vktf_tpu_torch.parallel import launch
+
+    input_dir = _cuda.BUILD_DIR / "mesh_inputs"
+    input_dir.mkdir(parents=True, exist_ok=True)
+    inputs = {}
+    for key, (leaves, meta_k, _still) in scenes.items():
+        np.savez(input_dir / f"{key}.npz", **leaves)
+        inputs[key] = (str(input_dir / f"{key}.npz"), meta_k, size)
+    t0 = time.perf_counter()
+    try:
+        ranks = launch.run(mesh_ranks, 4, MESH_CASES, inputs, 3, flight, device="cuda",
+                           backend=backend, timeout_s=400)
+    finally:
+        shutil.rmtree(input_dir, ignore_errors=True)
+    log(f"[mesh] {label}: spawn and {len(MESH_CASES)} paths {time.perf_counter() - t0:.1f} s")
+    launches = collections.Counter()
+    for tag, key, _gp, _sp in MESH_CASES:
+        got = ranks[tag]
+        same = np.array_equal(got["still"], scenes[key][2])
+        log(f"[mesh {tag}] {label}: K = {got['layers']}, {got['form']}: frame == the "
+            f"single-device frame: {same}; launches per rank over 3 frames, {flight} in flight "
+            "and the still:", json.dumps(got["launches"]))
+        log(f"[mesh {tag}] {label}: frame ms (host clock, synchronized) "
+            f"{[round(v, 3) for v in got['frame_ms']]}"
+            + (f"; with {FRAMES_IN_FLIGHT} in flight {got['flight_ms']:.4f} per frame over "
+               f"{flight}" if flight else "")
+            + "; rank 0 stage ms (CUDA events):",
+            json.dumps({k: round(v, 4) for k, v in got["stages"].items()}))
+        require(same, f"mesh {tag} ({label}): frame == the single-device frame")
+        for launched in got["launches"]:
+            require(len(set(launched.values())) == 1 and len(launched) == 4,
+                    f"mesh {tag}: setup, raster, shade table and shade once a frame on every "
+                    f"rank: {launched}")
+            launches.update(launched)
+    return launches
+
+
 def read_png(path) -> np.ndarray:
     """An 8-bit RGBA PNG as the port's window writes it (filter 0 rows,
     window.write_png), decoded with zlib."""
@@ -543,12 +684,85 @@ def viewer_phase(dev, config, camera, meta, still, sponza_files, box_files, asse
     log(f"[viewer] phase time: {time.perf_counter() - t_phase:.1f} s")
 
 
+def four_cards(args) -> int:
+    """--four-cards: phase 15d alone, on a machine with four cards: the
+    sources built, the opaque, translucent and mixed sponza's single-device
+    stills on card 0 (the opaque frame also timed, synchronized and with 4
+    in flight: the one-card reference), then MESH_CASES over NCCL, one card
+    a rank."""
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
+    from vktf_tpu_torch.models.scenes import (SAMPLER_PRESETS, build_preset, set_blend,
+                                              set_samplers, sponza_like_asset)
+    from vktf_tpu_torch.ops import _cuda, raster, setup_kernel, shade_kernel, shade_table
+    from vktf_tpu_torch.scene.scene import Scene
+
+    dev = cuda_device()
+    require(torch.cuda.device_count() >= 4, "--four-cards needs four cards")
+    card = card_line()
+    log("card:", card, "|", torch.cuda.get_device_name(0), "| cards",
+        torch.cuda.device_count(), "| torch", torch.__version__, "cuda", torch.version.cuda)
+    kernels = [setup_kernel.KERNEL, raster.KERNEL, shade_table.KERNEL, *shade_kernel.KERNELS]
+    t0 = time.perf_counter()
+    _cuda.build(sorted({k.source for k in kernels}))
+    log(f"build: {time.perf_counter() - t0:.1f} s wall")
+    width, height = (256, 128) if args.small else (1920, 1080)
+    config = RenderConfig(width=width, height=height, msaa_samples=4)
+    camera = Camera(*CAMERA, ViewFrustumParams(np.radians(45.0), width / height, 0.1, 1.0e6))
+    scenes = {}
+    for key in ("opaque", "translucent", "mixed"):
+        assets = ([sponza_like_asset(columns_per_ring=4, clutter=8, curtains=2, tex_size=64)]
+                  if args.small else build_preset("sponza"))
+        if key == "translucent":
+            set_blend(assets)
+        elif key == "mixed":
+            set_samplers(assets, **SAMPLER_PRESETS["mixed"])
+        scn = Scene(assets, config, camera=camera, device=dev)
+        if key == "opaque":
+            frame_ms = []
+            for _ in range(args.frames):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scn.render_async()
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+            n_flight, pending = 4 * args.frames, collections.deque()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_flight):
+                if len(pending) == FRAMES_IN_FLIGHT:
+                    pending.popleft().synchronize()
+                scn.render_async()
+                done = torch.cuda.Event()
+                done.record()
+                pending.append(done)
+            torch.cuda.synchronize()
+            log(f"[one card] opaque sponza {width}x{height} 4x, no mesh: frame ms (host clock, "
+                f"synchronized) {[round(v, 3) for v in frame_ms]}; with {FRAMES_IN_FLIGHT} in "
+                f"flight {(time.perf_counter() - t0) * 1e3 / n_flight:.4f} per frame over "
+                f"{n_flight}")
+        scenes[key] = (scene_leaves(scn.render_scene), scn.meta, scn.render_still())
+        del scn
+    launches = mesh_spawn("4 cards over NCCL", scenes, (width, height), "nccl",
+                          4 * args.frames)
+    log("[mesh] launches on the four-card paths (every rank):", json.dumps(dict(launches)))
+    log(card)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--small", action="store_true",
                         help="the small courtyard at 256x128 (a quick check)")
     parser.add_argument("--frames", type=int, default=8)
+    parser.add_argument("--four-cards", action="store_true",
+                        help="phase 15d alone: the mesh paths over NCCL on four cards")
     args = parser.parse_args()
+    if args.four_cards:
+        return four_cards(args)
 
     dev = cuda_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1097,6 +1311,7 @@ def main() -> int:
     held_resolve("shade per-slot taps=4, mixed sponza", shade_kernel.KERNEL_PER_SLOT_TAPS,
                  (tri_x, sx, sy, frac_x, table_x, scene_x.render_scene.quad_pool, cam, lights_x,
                   bg, ma, "per_slot", 4), mixed_bound, "per_slot", 4)
+    leaves_x, meta_x = scene_leaves(scene_x.render_scene), scene_x.meta  # phase 15
     del scene_x
 
     # i. their layer forms at K = 8
@@ -1279,6 +1494,68 @@ def main() -> int:
     require(stats["fps"] > 0 and stats["platform"] == "cuda" and "preview_fps" in stats,
             "bench_torch.run_bench measures the card")
     log(f"[bench] phase time: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 15. the multi-device frame path ----------------------------------
+    from vktf_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    mesh_launches = collections.Counter()
+    # a. the band offset: the second band of a (2, 2) mesh's frame
+    th = config.tile_shape[0]
+    band_h = (config.tiles_y + config.tiles_y % 2) * th // 2
+    for tag, strm, full_ids, full_depth, k in (("K = 1", stream, ids, depth, 1),
+                                              (f"K = {layers}", stream_t, ids_t, depth_t,
+                                               layers)):
+        b_args = (*strm, band_h, pw, config.msaa_samples, k)
+        b_ids, b_depth = raster.rasterize(*b_args, y_offset=band_h)
+        n = ph - band_h
+        rows_ok = (torch.equal(b_ids[..., :n, :], full_ids[..., band_h:, :])
+                   and bits_mismatch(b_depth[..., :n, :], full_depth[..., band_h:, :])[0] == 0
+                   and bool((b_ids[..., n:, :] == -1).all()))
+        p_ids, p_depth = raster.rasterize_plain(*b_args, band_h)
+        id_bad = int((b_ids != p_ids).sum())
+        d_bad, _ = bits_mismatch(b_depth[b_ids == p_ids], p_depth[b_ids == p_ids])
+        band_ms = cuda_ms(lambda: raster.rasterize(*b_args, y_offset=band_h), 10)
+        log(f"[mesh] band raster {tag}, rows {band_h}..{2 * band_h} of {pw} px: equal to the "
+            f"full frame's rows (ids, depth bits; rows past the frame empty): {rows_ok}; against "
+            f"the plain version at the band's shape: id differs at {id_bad}, depth not bit-equal "
+            f"at {d_bad} of the rest; {band_ms:.4f} ms (CUDA events)")
+        require(rows_ok, f"band raster {tag} == the full frame's rows")
+        require(id_bad <= (RASTER_ID_MISMATCH * b_ids.numel() if k == 1 else 0) and d_bad == 0,
+                f"band raster {tag} against its plain version")
+        del b_ids, b_depth, p_ids, p_depth
+    # b. NCCL at world size 1, in this process
+    with launch.launcher_mesh(1, 1, "cuda") as (mesh1, _):
+        require(mesh1.backend == "nccl", "the 1x1 mesh runs over NCCL")
+        still_n, launches_n = drive(Scene.from_render_scene(rs, meta, config, camera,
+                                                            mesh=mesh1), "mesh_nccl_1x1")
+    require(np.array_equal(still_n, still), "the NCCL 1x1 frame == phase 4's frame")
+    require(all(launches_n[k.name] > 0 for k in kernels[:4]), "the 1x1 mesh path's kernels ran")
+    mesh_launches.update({k: v for k, v in launches_n.items() if v})
+    log(f"[mesh] NCCL 1x1 frame == phase 4's frame bit for bit; with {FRAMES_IN_FLIGHT} frames "
+        f"in flight {flight_by_path['mesh_nccl_1x1']:.4f} ms per frame against phase 4's "
+        f"{flight_by_path['opaque']:.4f} ms")
+    # c. four ranks sharing the card over gloo
+    scenes = {"opaque": (scene_leaves(rs), meta, still),
+              "translucent": (scene_leaves(scene_t.render_scene), meta_t, still_t),
+              "mixed": (leaves_x, meta_x, still_x)}
+    del leaves_x
+    mesh_launches.update(mesh_spawn("4 ranks on one card over gloo (not a scaling number)",
+                                    scenes, (width, height), "gloo", 0))
+    # d. four cards over NCCL, where the machine has them
+    if torch.cuda.device_count() >= 4:
+        mesh_launches.update(mesh_spawn("4 cards over NCCL", scenes, (width, height), "nccl",
+                                        4 * args.frames))
+    else:
+        log(f"[mesh] the paths over NCCL on four cards: not run, this machine has "
+            f"{torch.cuda.device_count()} card(s) (chip_smoke.py --four-cards on a machine "
+            "with four)")
+    del scenes
+    log("[mesh] launches on the mesh paths (NCCL 1x1 and every rank of the spawns):",
+        json.dumps(dict(mesh_launches)))
+    log(f"[mesh] phase time: {time.perf_counter() - t_phase:.1f} s")
+    for r in records:
+        r["mesh_launches"] = mesh_launches.get(r["name"], 0)
 
     log(json.dumps({"kernels": records}))
     log(card)

@@ -5,7 +5,10 @@ the box preset at 192x96, msaa 1, two frames): a parseable JSON line lands
 on stdout at normal completion, when the watchdog's budget expires and on
 SIGTERM. Also: a bench run leaves jax out of sys.modules, its CONFIGS and
 CAMERAS are bench.py's, and with no card and no VKTF_FORCE_CPU it prints
-an error line and exits 1, as it does for the options the port has not.
+an error line and exits 1, as it does for the backends the port has not
+and for a mesh of several ranks outside a launcher. Under torchrun (four
+gloo ranks on the CPU) --mesh 2,2 prints one line, rank 0's, naming the
+mesh.
 """
 
 import importlib.util
@@ -142,7 +145,24 @@ def test_no_card_prints_an_error_line_and_exits_1():
 @pytest.mark.parametrize("flags", [["--mesh", "2,2"], ["--backend", "tiled"],
                                    ["--backend", "dense"]])
 def test_unported_options_print_an_error_line_and_exit_1(flags):
+    """The backends the port has not, and --mesh without a launcher (it
+    names torchrun; nothing re-execs or runs on one rank)."""
     rc, out, err = run_bench(flags, {})
     assert rc == 1, err[-2000:]
     line = parse_lines(out)[-1]
-    assert line["value"] == 0.0 and "not ported" in line["error"]
+    cause = "torchrun" if flags[0] == "--mesh" else "not ported"
+    assert line["value"] == 0.0 and cause in line["error"]
+
+
+def test_mesh_under_torchrun_prints_rank_0_s_line():
+    env = dict(os.environ, VKTF_FORCE_CPU="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         "4", "bench_torch.py", *SMALL, "--mesh", "2,2"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = parse_lines(proc.stdout)
+    assert len(lines) == 1
+    line = lines[0]
+    assert line["mesh"] == "gp2x sp2" and line["value"] > 0 and "partial" not in line
+    assert line["metric"] == "box @192x96 1xMSAA render FPS (12 tris, cpu/plain)"

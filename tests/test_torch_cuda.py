@@ -23,8 +23,10 @@ Engine.render; the Engine's pinned host ring over a moving camera; the
 viewer (game.main) on a small file written by the port's exporter, on the
 card against the CPU (chip_smoke.py's FRAME_MISMATCH); the present
 encodings on the card bit for bit the CPU's; sample-rate frames and the
-duck and box presets on the card against the CPU (FRAME_MISMATCH), and the
-sample-rate frame's launches. Tolerance otherwise: bit-equal (the
+duck and box presets on the card against the CPU (FRAME_MISMATCH), the
+sample-rate frame's launches, the raster's band offset against the full
+frame's rows, and two gloo ranks sharing the card against its one-device
+frame. Tolerance otherwise: bit-equal (the
 kernels run the plain versions' operations in the same order, with fused
 multiply-adds at the same places and the same CUDA math library).
 """
@@ -773,3 +775,57 @@ def test_duck_frame_on_the_card_matches_the_cpu(dev):
         diff = np.abs(frames[0].astype(np.int16) - frames[1]).max(axis=0)
         assert (frames[1].max(axis=0) > 0).mean() > 0.05, preset
         assert diff.max() <= 1 and (diff > 0).mean() <= FRAME_MISMATCH, preset
+
+
+@pytest.mark.parametrize("layers", [1, 8])
+def test_band_raster_kernel(dev, layers):
+    """The raster kernel's band offset: a band of rows equals those rows of
+    the full frame's raster (ids and depth bits) and the plain version at
+    the band's shape; rows past the frame stay empty."""
+    from vktf_tpu_torch.ops import raster
+
+    _rs, _m, _l, _vp, _setup, stream = _stages(dev, 4)
+    ids, depth = raster.rasterize(*stream, tp.HEIGHT, tp.WIDTH, 4, layers)
+    for y0, rows in ((0, 64), (64, 64), (16, 48), (96, 64)):
+        got = raster.rasterize(*stream, rows, tp.WIDTH, 4, layers, y_offset=y0)
+        want = raster.rasterize_plain(*stream, rows, tp.WIDTH, 4, layers, y0)
+        assert torch.equal(got[0], want[0]), y0
+        tp.assert_bits_equal(got[1].cpu().numpy(), want[1].cpu().numpy(), f"band {y0}")
+        n = min(rows, tp.HEIGHT - y0)
+        assert torch.equal(got[0][..., :n, :], ids[..., y0:y0 + n, :]), y0
+        tp.assert_bits_equal(got[1][..., :n, :].cpu().numpy(),
+                             depth[..., y0:y0 + n, :].cpu().numpy(), f"band rows {y0}")
+        assert bool((got[0][..., n:, :] == -1).all())
+
+
+def _gloo_ranks_frame(leaves, meta, gp, sp):
+    """On every rank of a gloo group sharing the card: the courtyard's
+    sharded frame on the card."""
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.parallel import make_render_mesh
+    from vktf_tpu_torch.scene.flatten import scene_from_numpy
+    from vktf_tpu_torch.scene.scene import Scene
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    scene = Scene.from_render_scene(
+        scene_from_numpy(leaves, dev), meta,
+        RenderConfig(width=tp.WIDTH, height=tp.HEIGHT, msaa_samples=4),
+        camera=tp.port_camera(), mesh=make_render_mesh(gp, sp))
+    return scene.render_still()
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2)])
+def test_gloo_ranks_on_one_card_render_the_single_device_frame(dev, mesh):
+    """Two ranks sharing the card over gloo (its collectives staged through
+    host memory): the sharded frame equals the card's single-device frame."""
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.parallel import launch
+    from vktf_tpu_torch.scene.scene import Scene
+
+    leaves, meta = tp.torch_leaves("sponza_small")
+    got = launch.run(_gloo_ranks_frame, 2, leaves, meta, *mesh, device="cuda",
+                     backend="gloo", timeout_s=300)
+    want = Scene(tp.torch_assets("sponza_small"),
+                 RenderConfig(width=tp.WIDTH, height=tp.HEIGHT, msaa_samples=4),
+                 camera=tp.port_camera(), device=dev).render_still()
+    np.testing.assert_array_equal(got, want)

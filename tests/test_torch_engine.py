@@ -1,8 +1,8 @@
 """The port's viewer layer on the CPU: Log, utils, Window, X11 helpers,
 Engine, game, the frame-program registry and the Scene signature.
 
-Mirrors tests/test_engine.py (less its sharded test: the port has no
-multi-device path), tests/test_log.py and tests/test_x11.py against the
+Mirrors tests/test_engine.py (its sharded test is in
+test_torch_parallel.py, with the multi-device path), tests/test_log.py and tests/test_x11.py against the
 port's modules, on glTF files written in ``tmp_path`` by the JAX package's
 GltfWriter, rendering with ``device="cpu"`` (the kernels' plain versions).
 Also: the Scene signature of the JAX package (``Scene(assets, config,
@@ -263,14 +263,16 @@ def test_no_card_raises_unless_cpu_asked(entry, tmp_path, capsys):
     ["--backend", "tiled"], ["--backend", "dense"], ["--mesh", "2,2"]])
 def test_refused_viewer_flags(flags, tmp_path, capsys):
     """Options the port cannot honour end main with 1 and the cause, before
-    anything renders; nothing falls back."""
+    anything renders; nothing falls back. A mesh of several ranks outside a
+    launcher names torchrun (it neither re-execs nor renders on one rank)."""
     from vktf_tpu_torch.game import main
 
     frames = tmp_path / "frames"
     rc = main([str(write_box(tmp_path)), "--width", "64", "--height", "48", "--frames", "1",
                "--display", "off", "--frame-dir", str(frames), *flags], device="cpu")
     assert rc == 1
-    assert re.search(r"^Error: .*not ported", capsys.readouterr().err, re.M)
+    cause = "torchrun" if flags[0] == "--mesh" else "not ported"
+    assert re.search(rf"^Error: .*{cause}", capsys.readouterr().err, re.M)
     assert not frames.exists()
 
 
@@ -337,7 +339,7 @@ def _box_assets(tmp_path):
 def test_scene_takes_log_third_like_jax(tmp_path):
     """Scene(assets, config, log) as in the JAX package: the log is not
     taken for a camera, the default camera renders, light_count exists,
-    and a mesh (the multi-device path) is refused."""
+    and a mesh (the multi-device path) at sample rate is refused."""
     from vktf_tpu_torch.log import Log
     from vktf_tpu_torch.scene.scene import Scene
 
@@ -353,8 +355,11 @@ def test_scene_takes_log_third_like_jax(tmp_path):
     assert (frame.max(axis=0) > 0).mean() > 0.05
     # the default camera: (0, 1, 0) looking +x, 45 degrees, the config's 4:3
     np.testing.assert_array_equal(by_keyword.render_still(), frame)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        Scene(_box_assets(tmp_path), config, quiet_log(), device="cpu", mesh=object())
+    from vktf_tpu_torch.parallel import RenderMesh
+
+    with pytest.raises(ValueError, match="shading_rate='sample' with a mesh"):
+        Scene(_box_assets(tmp_path), config.replace(shading_rate="sample"), quiet_log(),
+              device="cpu", mesh=RenderMesh(1, 1, "gloo", 0, None, None, None))
 
 
 def test_scenes_of_one_shape_share_a_program(tmp_path):

@@ -71,16 +71,9 @@ def _clip_z(tri_corner, mrowsT, vp):
 
 def _assert_depth_planes_close(got, want, z, w, valid):
     """The depth-plane bound of the module docstring."""
-    e9 = want["edge9"].astype(np.float64)
     br = want["bbox_rows"].astype(np.float64)
     bw, bh = br[2] - br[0], br[3] - br[1]
-    inv_det = np.abs(got["inv_det"].astype(np.float64))
-    scale = [inv_det * sum(np.abs(e9[3 * i + k] * z[i]) for i in range(3))
-             for k in range(3)]
-    crosser = (w[0] <= 1e-12) | (w[1] <= 1e-12) | (w[2] <= 1e-12)
-    bound = 2.0 ** -24 * 128 * (
-        scale[0] * bw + scale[1] * bh + 1.0
-        + np.where(crosser, scale[0] * br[0] + scale[1] * br[1] + scale[2], 0.0))
+    bound = tp.depth_plane_bound(want["edge9"], want["bbox_rows"], got["inv_det"], z, w)
     g = got["tri_data"][9:12].astype(np.float64)
     e = want["tri_data"][9:12].astype(np.float64)
     worst = np.zeros(valid.shape)

@@ -284,6 +284,25 @@ def setup_px(tris, width, height, z=0.5):
                       torch.from_numpy(tri_instance), torch.eye(4), width, height)
 
 
+def depth_plane_bound(edge9, bbox_rows, inv_det, z, w) -> np.ndarray:
+    """Per triangle, the bound on the port's and the JAX setup's depth at
+    any point of its bbox (tests/test_torch_setup.py's docstring): 128
+    roundings of the summand scale, |d_port - d_jax| <= 128 * 2^-24 *
+    (S_a * bbox_w + S_b * bbox_h + S_c + 1), S_c and the anchor terms for
+    near-plane crossers only. z, w: the three corners' clip z (float64) and
+    w."""
+    e9 = np.asarray(edge9).astype(np.float64)
+    br = np.asarray(bbox_rows).astype(np.float64)
+    bw, bh = br[2] - br[0], br[3] - br[1]
+    inv_det = np.abs(np.asarray(inv_det).astype(np.float64))
+    scale = [inv_det * sum(np.abs(e9[3 * i + k] * z[i]) for i in range(3))
+             for k in range(3)]
+    crosser = (w[0] <= 1e-12) | (w[1] <= 1e-12) | (w[2] <= 1e-12)
+    return 2.0 ** -24 * 128 * (
+        scale[0] * bw + scale[1] * bh + 1.0
+        + np.where(crosser, scale[0] * br[0] + scale[1] * br[1] + scale[2], 0.0))
+
+
 def port_camera(width: int = WIDTH, height: int = HEIGHT):
     """The port's camera at the parity tests' pose (no JAX import)."""
     from vktf_tpu_torch.mathx import Camera, ViewFrustumParams

@@ -42,6 +42,11 @@
 // without a spill. Shared memory (29 KB a block) does not bound occupancy.
 // Each warp covers an 8x4 pixel tile, so a small triangle's bbox meets
 // fewer warps than with two 16-pixel rows.
+// A band of rows (the multi-device frame, parallel/tiles.py) is the frame's
+// rows y_offset .. y_offset + height: every test and plane evaluation takes
+// the global pixel row (an exact integer in f32), and only the output index
+// takes the row within the band, so a band's rows equal the full frame's
+// rows bit for bit (rasterize_pallas's y_offset, raster_pallas.py:916).
 // No matrix product occurs, so wgmma does not apply. The alternatives
 // measured against these choices (plain loads, one chunk per list, other
 // group and test widths, 16-pixel warp rows, lists row by row, ptxas's own
@@ -189,7 +194,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<S, K>) raster_kernel(
     const float* __restrict__ tri_data, const float* __restrict__ tri_bbox,
     const float* __restrict__ chunk_bbox, int* __restrict__ out_id,
     float* __restrict__ out_depth, int n_chunks, int height, int width, int layers,
-    Offsets off) {
+    int y_offset, Offsets off) {
   __shared__ __align__(16) float lists[2][kList * kListRows];
   __shared__ int hit_list[kThreads * kTestWidth];
   __shared__ int sums[2][kWarps];
@@ -198,7 +203,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<S, K>) raster_kernel(
   // each warp an 8x4 pixel tile
   const int warp = tid >> 5, lane = tid & 31;
   const int qx = (warp & 1) * 8 + (lane & 7), qy = (warp >> 1) * 4 + (lane >> 3);
-  const int bx0 = blockIdx.x * kBlock, by0 = blockIdx.y * kBlock;
+  // global rows: the band starts at row y_offset
+  const int bx0 = blockIdx.x * kBlock, by0 = y_offset + blockIdx.y * kBlock;
   const int px = bx0 + qx, py = by0 + qy;
   const float fbx0 = (float)bx0, fby0 = (float)by0;
   const float fbx1 = fbx0 + kBlock, fby1 = fby0 + kBlock;
@@ -324,14 +330,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<S, K>) raster_kernel(
   if (pending) evaluate<S, K>(lists[cur ^ 1], kList, fpx, fpy, off, best);
   evaluate<S, K>(lists[cur], n_list, fpx, fpy, off, best);
 
-  // output (layers, S, height, width): layer-major, layers <= K
-  if (px < width && py < height) {
+  // output (layers, S, height, width) of the band: layer-major, layers <= K
+  const int row = py - y_offset;
+  if (px < width && row < height) {
 #pragma unroll
     for (int l = 0; l < K; ++l) {
       if (l >= layers) break;
 #pragma unroll
       for (int s = 0; s < S; ++s) {
-        const size_t o = (((size_t)l * S + s) * height + py) * width + px;
+        const size_t o = (((size_t)l * S + s) * height + row) * width + px;
         out_id[o] = best.i[s][l];
         out_depth[o] = best.d[s][l];
       }
@@ -342,28 +349,29 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<S, K>) raster_kernel(
 template <int S, int K>
 void launch(dim3 blocks, dim3 threads, cudaStream_t stream, const float* tri_data,
             const float* tri_bbox, const float* chunk_bbox, int* out_id, float* out_depth,
-            int n_chunks, int height, int width, int layers, const Offsets& off) {
+            int n_chunks, int height, int width, int layers, int y_offset, const Offsets& off) {
   raster_kernel<S, K><<<blocks, threads, 0, stream>>>(tri_data, tri_bbox, chunk_bbox, out_id,
                                                       out_depth, n_chunks, height, width,
-                                                      layers, off);
+                                                      layers, y_offset, off);
 }
 
 template <int S>
 int launch_layers(dim3 blocks, dim3 threads, cudaStream_t stream, const float* tri_data,
                   const float* tri_bbox, const float* chunk_bbox, int* out_id, float* out_depth,
-                  int n_chunks, int height, int width, int layers, const Offsets& off) {
+                  int n_chunks, int height, int width, int layers, int y_offset,
+                  const Offsets& off) {
   if (layers == 1)
     launch<S, 1>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id, out_depth,
-                 n_chunks, height, width, layers, off);
+                 n_chunks, height, width, layers, y_offset, off);
   else if (layers == 2)
     launch<S, 2>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id, out_depth,
-                 n_chunks, height, width, layers, off);
+                 n_chunks, height, width, layers, y_offset, off);
   else if (layers <= 4)
     launch<S, 4>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id, out_depth,
-                 n_chunks, height, width, layers, off);
+                 n_chunks, height, width, layers, y_offset, off);
   else if (layers <= 8)
     launch<S, 8>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id, out_depth,
-                 n_chunks, height, width, layers, off);
+                 n_chunks, height, width, layers, y_offset, off);
   else
     return (int)cudaErrorInvalidValue;
   return launch_status();
@@ -371,10 +379,13 @@ int launch_layers(dim3 blocks, dim3 threads, cudaStream_t stream, const float* t
 
 }  // namespace
 
-VKTF_EXPORT int vktf_raster(const float* tri_data, const float* tri_bbox, const float* chunk_bbox,
-                            int* out_id, float* out_depth, int n_chunks, int height, int width,
-                            int samples, int layers, const float* offsets, cudaStream_t stream) {
-  if (layers < 1) return (int)cudaErrorInvalidValue;
+// The rows y_offset .. y_offset + height of the frame (y_offset a multiple
+// of 16); vktf_raster is the whole frame from row 0.
+VKTF_EXPORT int vktf_raster_band(const float* tri_data, const float* tri_bbox,
+                                 const float* chunk_bbox, int* out_id, float* out_depth,
+                                 int n_chunks, int height, int width, int samples, int layers,
+                                 int y_offset, const float* offsets, cudaStream_t stream) {
+  if (layers < 1 || y_offset < 0 || y_offset % kBlock) return (int)cudaErrorInvalidValue;
   Offsets off = {};
   for (int s = 0; s < samples && s < 8; ++s) {
     off.v[s][0] = offsets[2 * s];
@@ -385,17 +396,24 @@ VKTF_EXPORT int vktf_raster(const float* tri_data, const float* tri_bbox, const 
   switch (samples) {
     case 1:
       return launch_layers<1>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
-                              out_depth, n_chunks, height, width, layers, off);
+                              out_depth, n_chunks, height, width, layers, y_offset, off);
     case 2:
       return launch_layers<2>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
-                              out_depth, n_chunks, height, width, layers, off);
+                              out_depth, n_chunks, height, width, layers, y_offset, off);
     case 4:
       return launch_layers<4>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
-                              out_depth, n_chunks, height, width, layers, off);
+                              out_depth, n_chunks, height, width, layers, y_offset, off);
     case 8:
       return launch_layers<8>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
-                              out_depth, n_chunks, height, width, layers, off);
+                              out_depth, n_chunks, height, width, layers, y_offset, off);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+VKTF_EXPORT int vktf_raster(const float* tri_data, const float* tri_bbox, const float* chunk_bbox,
+                            int* out_id, float* out_depth, int n_chunks, int height, int width,
+                            int samples, int layers, const float* offsets, cudaStream_t stream) {
+  return vktf_raster_band(tri_data, tri_bbox, chunk_bbox, out_id, out_depth, n_chunks, height,
+                          width, samples, layers, 0, offsets, stream);
 }

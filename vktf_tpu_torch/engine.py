@@ -1,10 +1,14 @@
 """Engine orchestration: load assets, run the frame loop, render.
 
 Counterpart of ``vktf_tpu/engine.py`` (reference: src/engine/engine.cppm):
-  * ``Engine(window, config, log, device)`` picks the device: the best
-    ranked CUDA card unless the caller asks for another (``device="cpu"``
-    runs the kernels' plain versions); with no card and no device it
-    raises. It logs the card and the kernels' build directory.
+  * ``Engine(window, config, log, device, mesh)`` picks the device: the
+    best ranked CUDA card unless the caller asks for another
+    (``device="cpu"`` runs the kernels' plain versions); with no card and
+    no device it raises. It logs the card and the kernels' build directory.
+    With a mesh (``parallel.make_render_mesh``) the device is this rank's
+    card (the launcher sets it) and the scenes it loads render through the
+    multi-device program (``Scene(mesh=)``), every rank rendering each
+    frame.
   * ``load(paths)`` skips non-glTF paths with a logged error
     (engine.cppm:462-473), then parses, decodes, flattens and uploads the
     assets into one Scene, timing each step (``load_seconds``).
@@ -57,10 +61,13 @@ def rank_devices(devices: Optional[Sequence[torch.device]] = None) -> list[torch
 
 class Engine:
     def __init__(self, window: Window, config: Optional[RenderConfig] = None,
-                 log: Optional[Log] = None, device=None):
+                 log: Optional[Log] = None, device=None, mesh=None):
         self.log = log or default_log()
         self.window = window
+        self.mesh = mesh
         self.config = config or RenderConfig(width=window.width, height=window.height)
+        if device is None and mesh is not None and torch.cuda.is_available():
+            device = torch.device("cuda", torch.cuda.current_device())
         if device is None:
             ranked = rank_devices()
             if not ranked:
@@ -78,6 +85,8 @@ class Engine:
         else:
             self.log.info(f"Engine using {self.device.type} device (the kernels' plain "
                           "PyTorch versions)")
+        if mesh is not None:
+            self.log.info(f"Engine rank {mesh.rank} of the {mesh} mesh ({mesh.backend})")
         cache_dir = enable_persistent_cache()
         self.log.info(f"Kernel build cache at {cache_dir}")
         # (pinned host frame, CUDA event after its copy or None) per frame
@@ -120,7 +129,8 @@ class Engine:
                              "upload": t4 - t3}
         self.log.info("Load seconds: " + ", ".join(
             f"{k} {v:.3f}" for k, v in self.load_seconds.items()))
-        return Scene.from_render_scene(render_scene, meta, self.config, log=self.log)
+        return Scene.from_render_scene(render_scene, meta, self.config, log=self.log,
+                                       mesh=self.mesh)
 
     # -- main loop (engine.cppm:76-84) ---------------------------------------
     def run(self, callback: Callable[[float], None]) -> None:

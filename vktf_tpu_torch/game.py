@@ -16,12 +16,21 @@ line. It renders on the card; ``start(..., device="cpu")`` and
 ``main(argv, device="cpu")`` run the kernels' plain versions on the CPU.
 Options the port cannot honour raise instead of falling back: ``--backend
 tiled|dense`` (the port has the streaming raster alone, which ``auto`` and
-``pallas`` name) and ``--mesh`` (multi-device). ``--preview`` is
-``--present-format yuv420`` at ``--present-scale`` 2 or more, as in the JAX
-viewer; ``p`` still saves the exact full-size frame.
+``pallas`` name). ``--preview`` is ``--present-format yuv420`` at
+``--present-scale`` 2 or more, as in the JAX viewer; ``p`` still saves the
+exact full-size frame.
+
+``--mesh GP,SP`` renders through the multi-device frame path
+(``parallel/tiles.py``), one process per device under torchrun (one card a
+rank under NCCL; gloo on the CPU). Rank 0 owns the window, the input and
+``--frame-dir``; the other ranks run headless and follow rank 0's camera,
+stills and end of the loop, one small broadcast a frame (``_follow``).
+Without the launcher's environment a mesh of more than one rank exits 1,
+naming torchrun.
 
     python -m vktf_tpu_torch.models.export --preset sponza --out assets
     python -m vktf_tpu_torch.game assets/*.gltf --frames 32
+    torchrun --standalone --nproc-per-node 4 -m vktf_tpu_torch.game assets/*.gltf --mesh 2,2
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import traceback
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from vktf_tpu_torch.config import RenderConfig
 from vktf_tpu_torch.engine import Engine
@@ -112,6 +122,16 @@ def fly_through_script(num_frames: int = 120) -> ScriptedInput:
     return ScriptedInput(steps)
 
 
+def _follow(mesh, camera, running: bool, still: bool) -> tuple[bool, bool]:
+    """One frame's control, rank 0's on every rank of the mesh: (running,
+    still), and rank 0's camera pose set on the others' cameras."""
+    values = mesh.broadcast_host([float(running), float(still), *camera.position,
+                                  *camera.orientation])
+    if mesh.rank:
+        camera.set_pose(values[2:5], values[5:9])
+    return bool(values[0]), bool(values[1])
+
+
 def start(
     asset_paths: Sequence[str],
     width: int = 1920,
@@ -121,14 +141,20 @@ def start(
     frame_dir=None,
     display: Optional[str] = "auto",
     device=None,
+    mesh=None,
 ) -> Window:
     """game::Start port (game.cppm:94-104). ``device``: as Engine's (the
-    card by default, "cpu" for the plain versions)."""
+    card by default, "cpu" for the plain versions). ``mesh``: a
+    ``parallel.RenderMesh``; ranks other than 0 take neither the window,
+    the script nor the frame directory, and follow rank 0 (``_follow``)."""
+    leader = mesh is None or mesh.rank == 0
+    if not leader:
+        script, frame_dir, display = None, None, None
     window = create_window(width, height, frame_dir=frame_dir,
                            display=display)
     if script is not None:
         window.attach_script(script)
-    elif not window.has_display:
+    elif leader and not window.has_display:
         # interactive mode with neither a script nor a real display would
         # render forever with no way to press ESC or close the window
         raise RuntimeError(
@@ -136,35 +162,54 @@ def start(
             "--display x11) or an input script"
         )
     engine = Engine(window, config or RenderConfig(width=width, height=height),
-                    device=device)
+                    device=device, mesh=mesh)
     scene = engine.load(asset_paths)
     if scene is None:
         raise RuntimeError("no loadable glTF assets provided")
     mouse_look = MouseLook()
 
-    # 'p' saves the exact full-resolution still (Scene.render_still)
+    # 'p' asks for the exact full-resolution still (Scene.render_still),
+    # rendered in the frame callback before its input moves the camera
+    # (under a mesh every rank renders it)
     still_count = [0]
+    still_asked = [False]
 
     def on_capture(event):
         if event.key == KEY_P and event.action == PRESS:
-            from pathlib import Path
+            still_asked[0] = True
 
-            frame = np.moveaxis(scene.render_still(), 0, -1)
-            rgba = np.concatenate([frame, np.full(frame.shape[:2] + (1,), 255, np.uint8)],
-                                  axis=-1)
-            out_dir = Path(frame_dir) if frame_dir else Path.cwd()
-            path = write_png(out_dir / f"still_{still_count[0]:05d}.png", rgba)
-            still_count[0] += 1
-            engine.log.info(f"Saved exact still to {path}")
+    def save_still():
+        from pathlib import Path
+
+        frame = np.moveaxis(scene.render_still(), 0, -1)
+        if not leader:
+            return
+        rgba = np.concatenate([frame, np.full(frame.shape[:2] + (1,), 255, np.uint8)],
+                              axis=-1)
+        out_dir = Path(frame_dir) if frame_dir else Path.cwd()
+        path = write_png(out_dir / f"still_{still_count[0]:05d}.png", rgba)
+        still_count[0] += 1
+        engine.log.info(f"Saved exact still to {path}")
 
     window.add_key_event_listener(on_capture)
 
     def frame(delta_time: float) -> None:
-        handle_key_events(window, scene.camera, delta_time)
-        mouse_look.handle(window, scene.camera)
+        still, still_asked[0] = still_asked[0], False
+        if mesh is not None:
+            running, still = _follow(mesh, scene.camera, True, still)
+            if not running:
+                window.close()
+                return
+        if still:
+            save_still()
+        if leader:
+            handle_key_events(window, scene.camera, delta_time)
+            mouse_look.handle(window, scene.camera)
         engine.render(scene)
 
     engine.run(frame)
+    if mesh is not None and leader:
+        _follow(mesh, scene.camera, False, False)
     return window
 
 
@@ -232,7 +277,9 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> int:
                              "derived, 1 + translucent instances, up to 8; "
                              "all-opaque scenes use 1)")
     parser.add_argument("--mesh", default=None, metavar="GP,SP",
-                        help="the multi-chip sharded frame path (not ported)")
+                        help="render through the multi-device frame path over a "
+                             "(gp, sp) mesh of processes (vktf_tpu_torch.parallel; "
+                             "under torchrun --nproc-per-node GP*SP)")
     args = parser.parse_args(list(sys.argv[1:] if argv is None else argv))
     try:
         _refuse_unported(args)
@@ -245,8 +292,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> int:
             peel_layers=args.peel_layers,
             present_format=present_format, present_scale=present_scale,
         )
-        start(
-            args.assets,
+        run = dict(
             width=args.width,
             height=args.height,
             config=config,
@@ -254,8 +300,16 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> int:
             else fly_through_script(args.frames),
             frame_dir=args.frame_dir,
             display=None if args.display == "off" else args.display,
-            device=device,
         )
+        if args.mesh:
+            from vktf_tpu_torch.parallel.launch import launcher_mesh
+
+            gp, sp = (int(x) for x in args.mesh.split(","))
+            kind = "cuda" if device is None else torch.device(device).type
+            with launcher_mesh(gp, sp, kind) as (mesh, rank_device):
+                start(args.assets, **run, device=rank_device, mesh=mesh)
+        else:
+            start(args.assets, **run, device=device)
         return 0
     except Exception as error:  # nested-exception unwinding analogue
         cause: BaseException | None = error
@@ -271,9 +325,6 @@ def _refuse_unported(args) -> None:
     if args.backend in ("tiled", "dense"):
         raise ValueError(f"--backend {args.backend} is not ported: the port has the "
                          "streaming raster alone (--backend auto or pallas)")
-    if args.mesh:
-        raise NotImplementedError("--mesh: the multi-device frame path is not ported "
-                                  "(ROADMAP Queue 1 #8)")
 
 
 if __name__ == "__main__":

@@ -75,6 +75,12 @@ class Camera:
         self._view = None
         self._projection = None
 
+    def set_pose(self, position, orientation) -> None:
+        """Take another camera's position and orientation quaternion."""
+        self.position = np.asarray(position, dtype=np.float32).copy()
+        self.orientation = np.asarray(orientation, dtype=np.float32).copy()
+        self._view = None
+
     def translate(self, translation) -> None:
         """Translate in the camera's local frame."""
         t = np.asarray(translation, dtype=np.float32)

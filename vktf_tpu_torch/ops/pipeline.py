@@ -177,9 +177,10 @@ def composite_samples(rgb, alpha, background, samples: int):
     return _pack_srgb(total * f32(1.0 / samples, rgb))
 
 
-def pixel_centers(height: int, width: int, device):
-    """Row-major pixel centres (sx, sy), each (H*W,) f32."""
-    ys, xs = torch.meshgrid(torch.arange(height, device=device),
+def pixel_centers(height: int, width: int, device, y0: int = 0):
+    """Row-major pixel centres (sx, sy), each (H*W,) f32, of the rows
+    y0 .. y0 + height (a band of the frame, exact in f32)."""
+    ys, xs = torch.meshgrid(torch.arange(y0, y0 + height, device=device),
                             torch.arange(width, device=device), indexing="ij")
     return ((xs.float() + 0.5).reshape(-1).contiguous(),
             (ys.float() + 0.5).reshape(-1).contiguous())
@@ -355,31 +356,33 @@ class FrameProgram:
             return self._present(packed)
         with self._stage("winner"):
             tri, frac = pixel_winner(ids, depth)
+        return self._present(self._shade_pixels(tri, frac, *self._centers, table, pool, cam,
+                                                lights, background))
+
+    def _shade_pixels(self, tri, frac, sx, sy, table, pool, cam, lights, background):
+        """Stages 6 (attrs) and 7 of pixel-rate shading on the pixels whose
+        winners, coverage and centres are given: (N,) i32 packed."""
+        form, cfg = self.form, self.config
         if form.attrs:
             with self._stage("attrs"):
-                attrs = shade_kernel.fragment_attrs(tri, *self._centers, table,
-                                                    cfg.max_anisotropy)
+                attrs = shade_kernel.fragment_attrs(tri, sx, sy, table, cfg.max_anisotropy)
         if self.layers == 1:
             with self._stage("shade"):
                 if form.attrs:
-                    packed = shade_kernel.shade_attrs_resolve(
+                    return shade_kernel.shade_attrs_resolve(
                         *attrs, tri, frac, pool, cam, lights, background)
-                else:
-                    packed = shade_kernel.shade_resolve(
-                        tri, *self._centers, frac, table, pool, cam, lights,
-                        background, cfg.max_anisotropy, form.texels, form.taps)
-        else:
-            with self._stage("shade"):
-                if form.attrs:
-                    rgb, alpha = shade_kernel.shade_attrs_layer(*attrs, tri, pool, cam,
-                                                                lights)
-                else:
-                    rgb, alpha = shade_kernel.shade_layer(
-                        tri, *self._centers, table, pool, cam, lights,
-                        cfg.max_anisotropy, form.texels, form.taps)
-            with self._stage("composite"):
-                packed = composite_resolve(rgb, alpha, frac, background)
-        return self._present(packed)
+                return shade_kernel.shade_resolve(
+                    tri, sx, sy, frac, table, pool, cam, lights, background,
+                    cfg.max_anisotropy, form.texels, form.taps)
+        with self._stage("shade"):
+            if form.attrs:
+                rgb, alpha = shade_kernel.shade_attrs_layer(*attrs, tri, pool, cam, lights)
+            else:
+                rgb, alpha = shade_kernel.shade_layer(
+                    tri, sx, sy, table, pool, cam, lights, cfg.max_anisotropy, form.texels,
+                    form.taps)
+        with self._stage("composite"):
+            return composite_resolve(rgb, alpha, frac, background)
 
     def _present(self, packed: torch.Tensor) -> torch.Tensor:
         with self._stage("present"):

@@ -46,7 +46,9 @@ bubble-down of raster_pallas.py:831-852. The kernel is templated on
 for as many resident blocks as the accumulators allow (no spill at any
 (S, K); the ptxas report is in PERF.md). The plain version runs K rounds
 of scatter_reduce("amin"), round l keeping only keys above round l-1's.
-Times on the card, against the previous design and the bound: PERF.md
+Both take a band offset ``y_offset`` (``rasterize_pallas``'s, for the
+multi-device frame, ``parallel/tiles.py``): the output is the frame's rows
+y_offset .. y_offset + height, every test on global rows. Times on the card, against the previous design and the bound: PERF.md
 (kernel_ab.py, chip_smoke.py).
 """
 
@@ -72,6 +74,8 @@ KERNEL_LAYERS = _cuda.Kernel(
 )
 _cuda.declare("raster.cu", "vktf_raster",
               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+_cuda.declare("raster.cu", "vktf_raster_band",
+              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
 
 # triangles per group: the slim flag is their AND; tri_bbox rows 4..7 hold
 # the group bbox, the TPU kernel's mid-level skip (the CUDA kernel lists
@@ -165,17 +169,19 @@ def _order_key(depth):
 
 
 def _candidates(tri_data, tri_bbox, height: int, width: int, msaa_samples: int,
-                max_pairs: int):
-    """Every passing fragment, in batches: (flat sample index (s, y, x),
-    int64 (depth, id) key). Enumerates (triangle, pixel) pairs over each
-    valid triangle's bbox, at most max_pairs pixels per batch."""
+                max_pairs: int, y_offset: int = 0):
+    """Every passing fragment of the band of rows y_offset .. y_offset +
+    height, in batches: (flat sample index (s, y - y_offset, x), int64
+    (depth, id) key). Enumerates (triangle, pixel) pairs over each valid
+    triangle's bbox cut to the band, at most max_pairs pixels per batch;
+    pixel rows are global, so a band's fragments are the full frame's."""
     dev = tri_data.device
     offsets = SAMPLE_OFFSETS[msaa_samples]
     idx = torch.nonzero(tri_data[15] >= 0.0).flatten()
     x0 = tri_bbox[0, idx].to(torch.int64)
-    y0 = tri_bbox[1, idx].to(torch.int64)
+    y0 = tri_bbox[1, idx].to(torch.int64).clamp(min=y_offset)
     bw = (tri_bbox[2, idx].to(torch.int64) - x0).clamp(min=0)
-    bh = (tri_bbox[3, idx].to(torch.int64) - y0).clamp(min=0)
+    bh = (tri_bbox[3, idx].to(torch.int64).clamp(max=y_offset + height) - y0).clamp(min=0)
     area = bw * bh
     keep = area > 0
     idx, x0, y0, bw, area = idx[keep], x0[keep], y0[keep], bw[keep], area[keep]
@@ -218,13 +224,14 @@ def _candidates(tri_data, tri_bbox, height: int, width: int, msaa_samples: int,
             ok = inside & (slim | ((w_recip > zero_f) & in_range))
             # the clear value (1.0, -1) wins every tie at depth 1.0
             ok = ok & (depth < one_f)
-            yield ((s * height + py[ok]) * width + px[ok],
+            yield ((s * height + py[ok] - y_offset) * width + px[ok],
                    _order_key(depth[ok]) | tri_id[ok])
         start = stop
 
 
 def rasterize_plain(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
-                    msaa_samples: int, layers: int = 1, *, max_pairs: int = 1 << 22):
+                    msaa_samples: int, layers: int = 1, y_offset: int = 0, *,
+                    max_pairs: int = 1 << 22):
     """Plain-torch version. Layer l of a sample is the minimum (depth, id)
     key among its fragments whose key exceeds layer l-1's: K rounds of
     scatter_reduce("amin") over every fragment (each triangle covers a
@@ -243,7 +250,7 @@ def rasterize_plain(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
         # once a layer is empty everywhere, so is every deeper one
         if prev is None or bool((prev != sentinel).any()):
             for flat, key in _candidates(tri_data, tri_bbox, height, width,
-                                         msaa_samples, max_pairs):
+                                         msaa_samples, max_pairs, y_offset):
                 if prev is not None:
                     deeper = key > prev[flat]
                     flat, key = flat[deeper], key[deeper]
@@ -261,19 +268,23 @@ def rasterize_plain(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
 
 
 def rasterize(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
-              msaa_samples: int, layers: int = 1):
+              msaa_samples: int, layers: int = 1, y_offset: int = 0):
     """Per-sample (tri_id i32, depth f32) of a stream built by raster_stream:
     (S, H, W) at layers == 1, else the `layers` nearest fragments of every
     sample nearest first, (K, S, H, W); an empty layer is (-1, 1.0).
-    height/width must be multiples of 16. CPU tensors take the plain
+    height/width must be multiples of 16. y_offset (a multiple of 16) makes
+    it the band of the frame's rows y_offset .. y_offset + height, equal to
+    those rows of the whole frame's raster. CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
     if height % 16 or width % 16:
         raise ValueError(f"framebuffer {height}x{width} must be a multiple of 16")
+    if y_offset < 0 or y_offset % 16:
+        raise ValueError(f"y_offset must be a non-negative multiple of 16, got {y_offset}")
     if not 1 <= layers <= PEEL_LAYERS_MAX:
         raise ValueError(f"layers must be 1..{PEEL_LAYERS_MAX}, got {layers}")
     if not tri_data.is_cuda:
         return rasterize_plain(tri_data, tri_bbox, chunk_bbox, height, width,
-                               msaa_samples, layers)
+                               msaa_samples, layers, y_offset)
     t_pad = tri_data.shape[1]
     if t_pad >= 1 << 24:
         raise ValueError("triangle ids ride f32 rows: exact only below 2^24")
@@ -293,9 +304,14 @@ def rasterize(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
     depth = torch.empty(shape, dtype=torch.float32, device=dev)
     offsets = (ctypes.c_float * (2 * s_count))(
         *[c for xy in SAMPLE_OFFSETS[msaa_samples] for c in xy])
+    lib = _cuda.library(KERNEL.source)
+    operands = (_cuda.ptr(tri_data), _cuda.ptr(tri_bbox), _cuda.ptr(chunk_bbox), _cuda.ptr(ids),
+                _cuda.ptr(depth), n_chunks, height, width, s_count, layers)
+    tail = (ctypes.cast(offsets, ctypes.c_void_p), _cuda.stream_of(tri_data))
     (KERNEL if layers == 1 else KERNEL_LAYERS).launches += 1
-    _cuda.check(_cuda.library(KERNEL.source).vktf_raster(
-        _cuda.ptr(tri_data), _cuda.ptr(tri_bbox), _cuda.ptr(chunk_bbox), _cuda.ptr(ids),
-        _cuda.ptr(depth), n_chunks, height, width, s_count, layers,
-        ctypes.cast(offsets, ctypes.c_void_p), _cuda.stream_of(tri_data)), "raster kernel")
+    # the whole frame through vktf_raster, the entry earlier sources have too
+    # (kernel_ab.py times them against these); a band through vktf_raster_band
+    status = (lib.vktf_raster(*operands, *tail) if y_offset == 0
+              else lib.vktf_raster_band(*operands, y_offset, *tail))
+    _cuda.check(status, "raster kernel")
     return ids, depth

@@ -5,7 +5,8 @@ shaders offline and reloads them at start-up (cmake/compile_shader.cmake);
 the port has two such layers:
 
   * an in-process registry: one ``FrameProgram`` per (scene shape, render
-    configuration), shared by every Scene of that shape. A program keeps
+    configuration, mesh), shared by every Scene of that shape (with a
+    ``parallel.RenderMesh``, the mesh's ``ShardedFrameProgram``). A program keeps
     per-scene state keyed on each leaf's identity and version and its
     stream order per device, so scenes that share it each render their own
     frame;
@@ -27,6 +28,7 @@ import torch
 
 from vktf_tpu_torch.ops import _cuda
 from vktf_tpu_torch.ops.pipeline import FrameProgram
+from vktf_tpu_torch.parallel.tiles import ShardedFrameProgram
 
 _programs: Dict[Tuple, FrameProgram] = {}
 
@@ -37,13 +39,16 @@ def enable_persistent_cache() -> str:
     return str(_cuda.BUILD_DIR)
 
 
-def frame_program(meta, config) -> FrameProgram:
-    """The FrameProgram for (scene shape, config), built once. SceneMeta and
-    RenderConfig are frozen and hashable, so they key the registry."""
-    key = ("frame", meta, config)
+def frame_program(meta, config, mesh=None) -> FrameProgram:
+    """The FrameProgram for (scene shape, config, mesh), built once: on one
+    device without a mesh, the ShardedFrameProgram over a RenderMesh.
+    SceneMeta and RenderConfig are frozen and hashable, and a mesh hashes by
+    identity, so they key the registry."""
+    key = ("frame", meta, config, mesh)
     program = _programs.get(key)
     if program is None:
-        program = _programs[key] = FrameProgram(meta, config)
+        program = _programs[key] = (FrameProgram(meta, config) if mesh is None
+                                    else ShardedFrameProgram(meta, config, mesh))
     return program
 
 

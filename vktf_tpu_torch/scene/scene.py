@@ -5,7 +5,10 @@ Counterpart of ``vktf_tpu/scene/scene.py``, with its signature
 one device scene, owns the camera (default: position (0, 1, 0), looking
 +x, 45 degree vertical field of view) and renders frames. The frame
 program comes from the shared registry (``runtime/cache.py``), so scenes
-of one shape and configuration share it.
+of one shape and configuration share it. With a mesh
+(``parallel.make_render_mesh``) the scene renders through the
+multi-device program on this rank's device, and every rank of the mesh
+renders each frame (``render_async`` and ``render_still`` are collectives).
 """
 
 from __future__ import annotations
@@ -39,29 +42,26 @@ class Scene:
     def __init__(self, assets: Sequence[Asset], config: RenderConfig,
                  log: Optional[Log] = None, camera: Optional[Camera] = None,
                  device=None, mesh=None):
-        """device: where the scene lives and renders (``resolve_device``).
-        mesh: the JAX package's multi-device frame path, which the port
-        does not have yet; any value raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "Scene(mesh=...): the multi-device frame path is not ported "
-                "(ROADMAP Queue 1 #8); render on one device")
+        """device: where the scene lives and renders (``resolve_device``:
+        this rank's card under a mesh). mesh: a ``parallel.RenderMesh``, or
+        None for one device."""
         log = log or default_log()
         render_scene, meta = flatten_assets(assets, resolve_device(device), log)
-        self._init(render_scene, meta, config, camera, log)
+        self._init(render_scene, meta, config, camera, log, mesh)
 
     @classmethod
     def from_render_scene(cls, render_scene: RenderScene, meta: SceneMeta,
                           config: RenderConfig, camera: Optional[Camera] = None,
-                          log: Optional[Log] = None) -> "Scene":
+                          log: Optional[Log] = None, mesh=None) -> "Scene":
         """A Scene over an already flattened scene (for example one carried
         over from another renderer with ``flatten.scene_from_numpy``)."""
         scene = cls.__new__(cls)
-        scene._init(render_scene, meta, config, camera, log or default_log())
+        scene._init(render_scene, meta, config, camera, log or default_log(), mesh)
         return scene
 
-    def _init(self, render_scene, meta, config, camera, log: Log) -> None:
+    def _init(self, render_scene, meta, config, camera, log: Log, mesh) -> None:
         self.config = config
+        self.mesh = mesh
         self.render_scene = render_scene
         self.meta = meta
         self.camera = camera or Camera(
@@ -74,7 +74,7 @@ class Scene:
                 z_far=1.0e6,
             ),
         )
-        self.frame_program = frame_program(meta, config)
+        self.frame_program = frame_program(meta, config, mesh)
         self._still_program = None
         log.info(f"Scene ready: {meta.num_triangles} tris, {meta.num_vertices} verts, "
                  f"{meta.num_instances} instances, {meta.num_lights} lights")
@@ -102,7 +102,8 @@ class Scene:
         if self.config.present_format != "rgb" or self.config.present_scale != 1:
             if self._still_program is None:
                 self._still_program = frame_program(
-                    self.meta, self.config.replace(present_format="rgb", present_scale=1))
+                    self.meta, self.config.replace(present_format="rgb", present_scale=1),
+                    self.mesh)
             program = self._still_program
         return program(self.render_scene, self.camera.view_projection_transform,
                        self.camera.position).cpu().numpy()
