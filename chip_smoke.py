@@ -97,10 +97,14 @@ Needs one CUDA card and nvcc. In order, it:
      sharded program's own overhead); c. one spawn of 4 processes sharing
      the card over gloo (parallel/launch.py), the opaque sponza on (2, 2),
      (4, 1) and (1, 4), the translucent (K = 8) and mixed sponza on (2, 2),
-     each frame equal to its single-device frame bit for bit, the counters
-     zeroed and read on every rank, frame and stage times printed (4 ranks
-     on one card over gloo: not a scaling number); d. with 4 or more cards,
-     (2, 2) over NCCL, one card a rank, else a line saying it did not run;
+     and the opaque, translucent and mixed sponza at sample rate on (2, 2),
+     each frame equal to its single-device frame at its rate bit for bit
+     (phase 13's sample-rate frames; the mixed one rendered in the phase),
+     the counters zeroed and read on every rank (at sample rate the layer
+     record once a frame, the resolve records never), frame and stage times
+     printed (4 ranks on one card over gloo: not a scaling number); d. with
+     4 or more cards, the same cases over NCCL, one card a rank, else a line
+     saying it did not run;
  16. checks the frames (shape, dtype, the share of pixels lit: 50% for
      sponza paths, 5% for the single-object presets), saves them as .npy in
      the build directory (vktf_tpu_torch/_build/, not committed), and prints
@@ -395,9 +399,10 @@ def scene_leaves(rs) -> dict:
 
 
 def mesh_ranks(cases, inputs, frames: int, flight: int) -> dict:
-    """One rank of phase 15's spawns. Per case (tag, scene key, gp, sp): the
-    scene from `inputs` (its leaves' .npz and SceneMeta) on this rank's
-    card at the phase's configuration, one warm frame, then with the
+    """One rank of phase 15's spawns. Per case (tag, scene key, gp, sp,
+    config overrides): the scene from `inputs` (its leaves' .npz and
+    SceneMeta) on this rank's card at the phase's configuration with the
+    case's overrides, one warm frame, then with the
     counters zeroed `frames` synchronized frames (host clock), `flight`
     frames with FRAMES_IN_FLIGHT in flight (none when 0), the still, the
     counters, and one frame's stage times; every rank's counters are
@@ -415,11 +420,11 @@ def mesh_ranks(cases, inputs, frames: int, flight: int) -> dict:
     kernels = [setup_kernel.KERNEL, raster.KERNEL, raster.KERNEL_LAYERS, shade_table.KERNEL,
                *shade_kernel.KERNELS]
     out = {}
-    for tag, key, gp, sp in cases:
+    for tag, key, gp, sp, overrides in cases:
         path, meta, (width, height) = inputs[key]
         with np.load(path) as z:
             leaves = {k: z[k] for k in z.files}
-        config = RenderConfig(width=width, height=height, msaa_samples=4)
+        config = RenderConfig(width=width, height=height, msaa_samples=4, **overrides)
         camera = Camera(*CAMERA, ViewFrustumParams(np.radians(45.0), width / height,
                                                    0.1, 1.0e6))
         scn = Scene.from_render_scene(scene_from_numpy(leaves, dev), meta, config, camera,
@@ -463,18 +468,24 @@ def mesh_ranks(cases, inputs, frames: int, flight: int) -> dict:
     return out
 
 
-MESH_CASES = [("opaque_2x2", "opaque", 2, 2), ("opaque_4x1", "opaque", 4, 1),
-              ("opaque_1x4", "opaque", 1, 4), ("translucent_2x2", "translucent", 2, 2),
-              ("mixed_2x2", "mixed", 2, 2)]
+# (tag, scene key, gp, sp, RenderConfig overrides)
+SAMPLE_RATE = {"shading_rate": "sample"}
+MESH_CASES = [("opaque_2x2", "opaque", 2, 2, {}), ("opaque_4x1", "opaque", 4, 1, {}),
+              ("opaque_1x4", "opaque", 1, 4, {}), ("translucent_2x2", "translucent", 2, 2, {}),
+              ("mixed_2x2", "mixed", 2, 2, {}), ("sample_2x2", "opaque", 2, 2, SAMPLE_RATE),
+              ("sample_translucent_2x2", "translucent", 2, 2, SAMPLE_RATE),
+              ("sample_mixed_2x2", "mixed", 2, 2, SAMPLE_RATE)]
 
 
 def mesh_spawn(label: str, scenes: dict, size, backend: str, flight: int) -> collections.Counter:
     """Phase 15's spawned paths: MESH_CASES on 4 ranks (`backend`: gloo, the
     ranks sharing the card; nccl, one card a rank), each scene given as
-    (device scene leaves, SceneMeta, single-device still); every frame must
-    equal its scene's still bit for bit and every rank must launch setup,
-    raster, shade table and shade once a frame. Returns the launches."""
-    from vktf_tpu_torch.ops import _cuda
+    (device scene leaves, SceneMeta, {shading rate: single-device still});
+    every frame must equal its scene's still at its rate bit for bit and
+    every rank must launch setup, raster, shade table and shade once a
+    frame, at sample rate the shade a layer record (no resolve record).
+    Returns the launches."""
+    from vktf_tpu_torch.ops import _cuda, shade_kernel
     from vktf_tpu_torch.parallel import launch
 
     input_dir = _cuda.BUILD_DIR / "mesh_inputs"
@@ -489,13 +500,17 @@ def mesh_spawn(label: str, scenes: dict, size, backend: str, flight: int) -> col
                            backend=backend, timeout_s=400)
     finally:
         shutil.rmtree(input_dir, ignore_errors=True)
-    log(f"[mesh] {label}: spawn and {len(MESH_CASES)} paths {time.perf_counter() - t0:.1f} s")
+    log(f"[mesh] {label}: spawn and {len(MESH_CASES)} paths {time.perf_counter() - t0:.1f} s "
+        f"on {card_line()}")
+    shade_records = {k.name for k in shade_kernel.KERNELS}
+    layer_records = {n for n in shade_records if n.startswith("shade_layer")}
     launches = collections.Counter()
-    for tag, key, _gp, _sp in MESH_CASES:
+    for tag, key, _gp, _sp, overrides in MESH_CASES:
         got = ranks[tag]
-        same = np.array_equal(got["still"], scenes[key][2])
-        log(f"[mesh {tag}] {label}: K = {got['layers']}, {got['form']}: frame == the "
-            f"single-device frame: {same}; launches per rank over 3 frames, {flight} in flight "
+        rate = overrides.get("shading_rate", "pixel")
+        same = np.array_equal(got["still"], scenes[key][2][rate])
+        log(f"[mesh {tag}] {label}: K = {got['layers']}, {got['form']}, {rate} rate: frame == "
+            f"the single-device frame: {same}; launches per rank over 3 frames, {flight} in flight "
             "and the still:", json.dumps(got["launches"]))
         log(f"[mesh {tag}] {label}: frame ms (host clock, synchronized) "
             f"{[round(v, 3) for v in got['frame_ms']]}"
@@ -508,6 +523,9 @@ def mesh_spawn(label: str, scenes: dict, size, backend: str, flight: int) -> col
             require(len(set(launched.values())) == 1 and len(launched) == 4,
                     f"mesh {tag}: setup, raster, shade table and shade once a frame on every "
                     f"rank: {launched}")
+            if rate == "sample":
+                require(set(launched) & shade_records <= layer_records,
+                        f"mesh {tag}: the layer record, never a resolve record: {launched}")
             launches.update(launched)
     return launches
 
@@ -687,9 +705,9 @@ def viewer_phase(dev, config, camera, meta, still, sponza_files, box_files, asse
 def four_cards(args) -> int:
     """--four-cards: phase 15d alone, on a machine with four cards: the
     sources built, the opaque, translucent and mixed sponza's single-device
-    stills on card 0 (the opaque frame also timed, synchronized and with 4
-    in flight: the one-card reference), then MESH_CASES over NCCL, one card
-    a rank."""
+    stills on card 0 at pixel and sample rate (the opaque pixel-rate frame
+    also timed, synchronized and with 4 in flight: the one-card reference),
+    then MESH_CASES over NCCL, one card a rank."""
     from vktf_tpu_torch.config import RenderConfig
     from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
     from vktf_tpu_torch.models.scenes import (SAMPLER_PRESETS, build_preset, set_blend,
@@ -741,8 +759,11 @@ def four_cards(args) -> int:
                 f"synchronized) {[round(v, 3) for v in frame_ms]}; with {FRAMES_IN_FLIGHT} in "
                 f"flight {(time.perf_counter() - t0) * 1e3 / n_flight:.4f} per frame over "
                 f"{n_flight}")
-        scenes[key] = (scene_leaves(scn.render_scene), scn.meta, scn.render_still())
-        del scn
+        sample = Scene.from_render_scene(scn.render_scene, scn.meta,
+                                         config.replace(shading_rate="sample"), camera)
+        scenes[key] = (scene_leaves(scn.render_scene), scn.meta,
+                       {"pixel": scn.render_still(), "sample": sample.render_still()})
+        del scn, sample
     launches = mesh_spawn("4 cards over NCCL", scenes, (width, height), "nccl",
                           4 * args.frames)
     log("[mesh] launches on the four-card paths (every rank):", json.dumps(dict(launches)))
@@ -1455,6 +1476,7 @@ def main() -> int:
 
     # ---- 13. sample-rate shading: opaque and translucent K = 8 -------------
     t_phase = time.perf_counter()
+    sample_stills = {}  # phase 15's references
     for tag, base, still_base in (("sample", scene, still), ("translucent_sample", scene_t,
                                                              still_t)):
         scene_s = variant(base, shading_rate="sample")
@@ -1462,6 +1484,7 @@ def main() -> int:
         require((form.texels, form.taps, form.attrs) == ("fused", 1, False),
                 f"{tag}: shade form {form}")
         still_s, launches_s = drive(scene_s, tag)
+        sample_stills[tag] = still_s
         behind_a_busy_stream(scene_s, tag, still_s)
         require(launches_s["shade_layer"] == launches_s["setup"] > 0
                 and launches_s["shade"] == 0,
@@ -1497,6 +1520,7 @@ def main() -> int:
 
     # ---- 15. the multi-device frame path ----------------------------------
     from vktf_tpu_torch.parallel import launch
+    from vktf_tpu_torch.scene.flatten import scene_from_numpy
 
     t_phase = time.perf_counter()
     mesh_launches = collections.Counter()
@@ -1535,10 +1559,16 @@ def main() -> int:
     log(f"[mesh] NCCL 1x1 frame == phase 4's frame bit for bit; with {FRAMES_IN_FLIGHT} frames "
         f"in flight {flight_by_path['mesh_nccl_1x1']:.4f} ms per frame against phase 4's "
         f"{flight_by_path['opaque']:.4f} ms")
-    # c. four ranks sharing the card over gloo
-    scenes = {"opaque": (scene_leaves(rs), meta, still),
-              "translucent": (scene_leaves(scene_t.render_scene), meta_t, still_t),
-              "mixed": (leaves_x, meta_x, still_x)}
+    # c. four ranks sharing the card over gloo; the mixed sponza's
+    # single-device sample-rate frame is rendered here
+    still_xs = Scene.from_render_scene(scene_from_numpy(leaves_x, dev), meta_x,
+                                       config.replace(shading_rate="sample"),
+                                       camera).render_still()
+    scenes = {"opaque": (scene_leaves(rs), meta, {"pixel": still,
+                                                  "sample": sample_stills["sample"]}),
+              "translucent": (scene_leaves(scene_t.render_scene), meta_t,
+                              {"pixel": still_t, "sample": sample_stills["translucent_sample"]}),
+              "mixed": (leaves_x, meta_x, {"pixel": still_x, "sample": still_xs})}
     del leaves_x
     mesh_launches.update(mesh_spawn("4 ranks on one card over gloo (not a scaling number)",
                                     scenes, (width, height), "gloo", 0))

@@ -339,7 +339,8 @@ def _box_assets(tmp_path):
 def test_scene_takes_log_third_like_jax(tmp_path):
     """Scene(assets, config, log) as in the JAX package: the log is not
     taken for a camera, the default camera renders, light_count exists,
-    and a mesh (the multi-device path) at sample rate is refused."""
+    and a mesh (the multi-device path) at sample rate renders the
+    single-device sample-rate frame."""
     from vktf_tpu_torch.log import Log
     from vktf_tpu_torch.scene.scene import Scene
 
@@ -355,11 +356,21 @@ def test_scene_takes_log_third_like_jax(tmp_path):
     assert (frame.max(axis=0) > 0).mean() > 0.05
     # the default camera: (0, 1, 0) looking +x, 45 degrees, the config's 4:3
     np.testing.assert_array_equal(by_keyword.render_still(), frame)
-    from vktf_tpu_torch.parallel import RenderMesh
+    import torch.distributed as dist
 
-    with pytest.raises(ValueError, match="shading_rate='sample' with a mesh"):
-        Scene(_box_assets(tmp_path), config.replace(shading_rate="sample"), quiet_log(),
-              device="cpu", mesh=RenderMesh(1, 1, "gloo", 0, None, None, None))
+    from vktf_tpu_torch.parallel import ShardedFrameProgram, make_render_mesh
+
+    sample = config.replace(shading_rate="sample")
+    want = Scene(_box_assets(tmp_path), sample, quiet_log(), device="cpu").render_still()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        meshed = Scene(_box_assets(tmp_path), sample, quiet_log(), device="cpu",
+                       mesh=make_render_mesh(1, 1))
+        assert isinstance(meshed.frame_program, ShardedFrameProgram)
+        np.testing.assert_array_equal(meshed.render_still(), want)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_scenes_of_one_shape_share_a_program(tmp_path):

@@ -8,7 +8,11 @@ bit for bit, as the JAX sharded frame equals the JAX single-chip frame
 256x128, 4x MSAA, on (2, 1), (1, 2), (2, 2), (4, 1) and (1, 4); its blend
 variant (K = 8), its mixed-sampler variant, four anisotropic taps and the
 attrs boundary on (2, 2); 256x192, whose three tile rows pad to four
-bands' worth on (2, 2); the yuv420 x2 preview stream; ``Engine(mesh=)``
+bands' worth on (2, 2); the yuv420 x2 preview stream; sample-rate shading
+(every sample shaded through the layer record at its global position) on
+(2, 2), (4, 1) and (1, 2), blend (K = 8), mixed samplers and four taps on
+the two-gather pool on (2, 2), each equal to the single-device
+sample-rate frame bit for bit; ``Engine(mesh=)``
 against the plain Engine; ``game.main --mesh 2,2`` against ``game.main``
 (rank 0's dumped frames).
 
@@ -55,10 +59,17 @@ FOUR_RANK_CASES = [
     ("attrs_2x2", COURT, 2, 2, {"shade_attrs_boundary": True}),
     ("uneven_2x2", COURT, 2, 2, {"height": 192}),
     ("preview_2x2", COURT, 2, 2, {"present_format": "yuv420", "present_scale": 2}),
+    ("sample_2x2", COURT, 2, 2, {"shading_rate": "sample"}),
+    ("sample_4x1", COURT, 4, 1, {"shading_rate": "sample"}),
+    ("sample_blend_2x2", COURT + "_blend", 2, 2, {"shading_rate": "sample"}),
+    ("sample_mixed_2x2", COURT + "_mixed", 2, 2, {"shading_rate": "sample"}),
+    ("sample_taps_classic_2x2", COURT, 2, 2,
+     {"shading_rate": "sample", "aniso_taps": 4, "shade_fused_pool": False}),
 ]
 TWO_RANK_CASES = [
     ("opaque_2x1", COURT, 2, 1, {}),
     ("opaque_1x2", COURT, 1, 2, {}),
+    ("sample_1x2", COURT, 1, 2, {"shading_rate": "sample"}),
 ]
 
 
@@ -292,19 +303,18 @@ def test_band_raster_equals_the_full_frame_rows(layers):
 
 
 def test_refusals():
-    """Sample-rate shading with a mesh (the JAX sharded path would shade at
-    pixel rate), band pixels that gp does not divide, and a mesh that is not
-    the process group's size raise ValueError."""
+    """Band pixels that gp does not divide and a mesh that is not the
+    process group's size raise ValueError; a mesh outside an initialised
+    process group raises RuntimeError."""
     import torch.distributed as dist
 
     from vktf_tpu_torch.parallel import RenderMesh, ShardedFrameProgram, make_render_mesh
 
     _leaves, meta = tp.torch_leaves(COURT)
-    with pytest.raises(ValueError, match="shading_rate='sample' with a mesh"):
-        ShardedFrameProgram(meta, _config(shading_rate="sample"),
-                            RenderMesh(2, 2, "gloo", 0, None, None, None))
-    with pytest.raises(ValueError, match="not divisible by gp=3"):
-        ShardedFrameProgram(meta, _config(), RenderMesh(3, 1, "gloo", 0, None, None, None))
+    for rate in ("pixel", "sample"):
+        with pytest.raises(ValueError, match="not divisible by gp=3"):
+            ShardedFrameProgram(meta, _config(shading_rate=rate),
+                                RenderMesh(3, 1, "gloo", 0, None, None, None))
     with pytest.raises(RuntimeError, match="initialised default process group"):
         make_render_mesh(1, 1)
     with tempfile.TemporaryDirectory() as rendezvous:

@@ -12,12 +12,16 @@ module).
     sample's triangle (the two setups' depth planes may differ by it);
   * frames: the port's sharded frame against ``make_sharded_frame_fn``'s,
     within ``torch_parity.assert_frames_close``;
-  * the reference's fault: the JAX sharded frame at
-    ``shading_rate="sample"`` equals the JAX single-chip frame at pixel
-    rate bit for bit (its sharded shade never reads the rate), and differs
-    from the sample-rate frame (the port's, which tests/test_torch_sample.py
-    holds to the JAX single-chip sample-rate frame). The port refuses a mesh
-    at sample rate (test_torch_parallel.py).
+  * sample rate: the mixed-sampler courtyard at ``shading_rate="sample"``
+    on the same mesh, the port's frame against ``make_sharded_frame_fn``'s,
+    whose assembled branch honours the rate for mixed samplers, within the
+    same budget;
+  * the reference's fault: on its fused ``tiled_shade`` branch the JAX
+    sharded frame at ``shading_rate="sample"`` equals the JAX single-chip
+    frame at pixel rate bit for bit (that shade never reads the rate), and
+    differs from the sample-rate frame (the port's, which
+    tests/test_torch_sample.py holds to the JAX single-chip sample-rate
+    frame, and which the port's mesh renders too: test_torch_parallel.py).
 """
 
 from functools import partial
@@ -32,13 +36,14 @@ import torch_parity as tp
 tp.limit_threads()
 
 COURT = "sponza_small"
+MIXED = COURT + "_mixed"
 WIDTH, HEIGHT, MSAA = 128, 64, 2
 
 
-def _jax_scene_leaves():
+def _jax_scene_leaves(name=COURT):
     """The JAX scene's leaves and the port's SceneMeta of it."""
-    _scene, jmeta = tp.jax_scene(COURT)
-    return tp.jax_leaves(COURT), tp.port_meta(jmeta)
+    _scene, jmeta = tp.jax_scene(name)
+    return tp.jax_leaves(name), tp.port_meta(jmeta)
 
 
 def _port_scene(leaves, meta, mesh=None, **kw):
@@ -51,9 +56,10 @@ def _port_scene(leaves, meta, mesh=None, **kw):
                                    camera=tp.port_camera(WIDTH, HEIGHT), mesh=mesh)
 
 
-def _port_ranks(leaves, meta):
-    """On every rank: the (2, 2) frame, and on rank 0 every band's merged
-    (ids, depth) in band order (each rank records what its merge unpacks)."""
+def _port_ranks(leaves, meta, mixed_leaves, mixed_meta):
+    """On every rank: the (2, 2) frame, on rank 0 every band's merged
+    (ids, depth) in band order (each rank records what its merge unpacks),
+    and the mixed-sampler courtyard's (2, 2) frame at sample rate."""
     import torch.distributed as dist
 
     from vktf_tpu_torch.parallel import make_render_mesh, tiles
@@ -80,14 +86,15 @@ def _port_ranks(leaves, meta):
                for s in range(2))
     ids = np.concatenate([bands[s][0] for s in range(2)], axis=-2)
     depth = np.concatenate([bands[s][1] for s in range(2)], axis=-2)
-    return frame, ids, depth
+    mixed = _port_scene(mixed_leaves, mixed_meta, mesh, shading_rate="sample").render_async()
+    return frame, ids, depth, mixed.numpy()
 
 
 @pytest.fixture(scope="module")
 def port():
     from vktf_tpu_torch.parallel import launch
 
-    return launch.run(_port_ranks, 4, *_jax_scene_leaves())
+    return launch.run(_port_ranks, 4, *_jax_scene_leaves(), *_jax_scene_leaves(MIXED))
 
 
 @pytest.fixture(scope="module")
@@ -97,8 +104,8 @@ def jax_mesh():
     return make_render_mesh(jax.devices()[:4], gp=2, sp=2)
 
 
-def _jax_inputs(**kw):
-    scene, meta = tp.jax_scene(COURT)
+def _jax_inputs(name=COURT, **kw):
+    scene, meta = tp.jax_scene(name)
     jcam, _ = tp.cameras(WIDTH, HEIGHT)
     return scene, meta, tp.jax_config(MSAA, width=WIDTH, height=HEIGHT, **kw), jcam
 
@@ -130,7 +137,7 @@ def test_merged_visibility_matches_jax_debug_visibility(port, jax_mesh):
                           debug_visibility=True))(
         scene, jcam.view_projection_transform, jcam.position)
     want_ids, want_depth = np.asarray(vis[0]), np.asarray(vis[1])
-    _frame, ids, depth = port
+    _frame, ids, depth, _mixed = port
     assert ids.shape == want_ids.shape == (MSAA, 128, 128)
     np.testing.assert_array_equal(ids, want_ids)
     covered = ids >= 0
@@ -149,14 +156,34 @@ def test_sharded_frame_matches_jax_sharded_frame(port, jax_mesh):
     scene, meta, cfg, jcam = _jax_inputs()
     want = np.asarray(make_sharded_frame_fn(meta, cfg, jax_mesh)(
         scene, jcam.view_projection_transform, jcam.position))
-    frame, _ids, _depth = port
+    frame, _ids, _depth, _mixed = port
     tp.assert_frames_close(frame, want, (3, HEIGHT, WIDTH))
     assert (frame.max(axis=0) > 0).mean() > 0.5
 
 
+def test_sample_rate_mixed_frame_matches_jax_sharded_frame(port, jax_mesh):
+    """Mixed samplers take the JAX sharded path's assembled branch, which
+    shades at the sample rate: the port's mesh frame within the budget of
+    the JAX sharded frame, and not the pixel-rate frame."""
+    from vktf_tpu.parallel import make_sharded_frame_fn
+
+    scene, meta, cfg, jcam = _jax_inputs(MIXED, shading_rate="sample")
+    assert meta.mixed_samplers
+    cam = (jcam.view_projection_transform, jcam.position)
+    want = np.asarray(make_sharded_frame_fn(meta, cfg, jax_mesh)(scene, *cam))
+    *_, mixed = port
+    tp.assert_frames_close(mixed, want, (3, HEIGHT, WIDTH))
+    assert (mixed.max(axis=0) > 0).mean() > 0.5
+    pixel = _port_scene(*_jax_scene_leaves(MIXED)).render_still()
+    assert (pixel != mixed).any(axis=0).mean() > 0.01
+
+
 def test_jax_sharded_frame_ignores_the_sample_rate(jax_mesh):
-    """The reference's fault the port does not copy: JAX's sharded frame at
-    sample rate is its single-chip PIXEL-rate frame."""
+    """The reference's fault the port does not copy: on its fused
+    ``tiled_shade`` branch, JAX's sharded frame at sample rate is its
+    single-chip PIXEL-rate frame. The port's mesh renders the true
+    sample-rate frame there (its single-device sample-rate frame, bit for
+    bit: test_torch_parallel.py)."""
     from vktf_tpu.ops.pipeline import make_frame_fn
     from vktf_tpu.parallel import make_sharded_frame_fn
 

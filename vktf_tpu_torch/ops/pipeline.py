@@ -186,12 +186,12 @@ def pixel_centers(height: int, width: int, device, y0: int = 0):
             (ys.float() + 0.5).reshape(-1).contiguous())
 
 
-def sample_centers(height: int, width: int, msaa_samples: int, device):
+def sample_centers(height: int, width: int, msaa_samples: int, device, y0: int = 0):
     """Every sample's position (sx, sy), each (S*H*W,) f32, sample-major
-    (the order of the raster's flattened (S, H, W) ids): the pixel index
-    plus the sample's SAMPLE_OFFSETS entry (k / 16 for integer k, so each
-    float32 sum is exact)."""
-    ys, xs = torch.meshgrid(torch.arange(height, device=device),
+    (the order of the raster's flattened (S, H, W) ids), of the rows
+    y0 .. y0 + height: the pixel index plus the sample's SAMPLE_OFFSETS
+    entry (k / 16 for integer k, so each float32 sum is exact)."""
+    ys, xs = torch.meshgrid(torch.arange(y0, y0 + height, device=device),
                             torch.arange(width, device=device), indexing="ij")
     xs, ys = xs.float(), ys.float()
     offsets = SAMPLE_OFFSETS[msaa_samples]
@@ -345,19 +345,26 @@ class FrameProgram:
             table = shade_table.build_shade_table(
                 setup["edge9"], scene.tri_corner, scene.tri_static_cols,
                 setup["anchor2"], inst_rows, tri_instance)
-        form, pool = self.form, scene.quad_pool
+        pool = scene.quad_pool
         if cfg.shading_rate == "sample":
-            with self._stage("shade"):
-                rgb, alpha = shade_kernel.shade_layer(
-                    ids.reshape(self.layers, -1), *self._centers, table, pool, cam, lights,
-                    cfg.max_anisotropy, form.texels, form.taps)
-            with self._stage("composite"):
-                packed = composite_samples(rgb, alpha, background, self._samples)
-            return self._present(packed)
+            return self._present(self._shade_samples(ids.reshape(self.layers, -1),
+                                                     *self._centers, table, pool, cam, lights,
+                                                     background))
         with self._stage("winner"):
             tri, frac = pixel_winner(ids, depth)
         return self._present(self._shade_pixels(tri, frac, *self._centers, table, pool, cam,
                                                 lights, background))
+
+    def _shade_samples(self, ids, sx, sy, table, pool, cam, lights, background):
+        """Sample-rate shading of the (K, S*N) sample-major ids at the given
+        sample positions, composited and averaged per pixel: (N,) i32
+        packed."""
+        form, cfg = self.form, self.config
+        with self._stage("shade"):
+            rgb, alpha = shade_kernel.shade_layer(ids, sx, sy, table, pool, cam, lights,
+                                                  cfg.max_anisotropy, form.texels, form.taps)
+        with self._stage("composite"):
+            return composite_samples(rgb, alpha, background, self._samples)
 
     def _shade_pixels(self, tri, frac, sx, sy, table, pool, cam, lights, background):
         """Stages 6 (attrs) and 7 of pixel-rate shading on the pixels whose

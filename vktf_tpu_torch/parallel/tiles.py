@@ -35,7 +35,12 @@ shards. Per frame, in order:
      all-gather of the K keys and ``merge_keys``;
   f. the per-pixel winner on the merged band; this gp rank shades its
      contiguous 1/gp of the band's row-major pixels at their global centres
-     (the same shade forms, and the composite at K > 1, as on one device);
+     (the same shade forms, and the composite at K > 1, as on one device).
+     At sample rate there is no winner: this gp rank takes the same 1/gp of
+     the pixels with every sample of each (the merged (K, S, band_h, pw)
+     ids, sliced to (K, S * rank_px), sample-major), shades them through
+     the layer record of the form at each sample's global position, and
+     composites and averages each pixel's samples (``composite_samples``);
   g. the u8 pixels gathered over gp, then the bands over sp, so every rank
      returns the whole frame, cropped and presented by the same encoder.
 
@@ -45,14 +50,19 @@ equals the single-device frame bit for bit. A collective over a group of
 one rank is skipped (its result is its input): a (1, 1) mesh adds only the
 camera broadcast to the single-device frame.
 
-Sample-rate shading with a mesh raises: the JAX sharded path shades at
-pixel rate whatever the configuration asks (``tiled_shade``,
-``vktf_tpu/parallel/tiles.py:146-148``, never reads ``shading_rate``),
-a silent downgrade that is not copied. The camera is rank 0's, so ranks
-whose viewers run different clocks still render one view. The stream order
-follows this rank's own camera (it orders the raster's input and never
-changes a pixel). The frustum cull of the JAX path's XLA setup branch is
-not needed: the setup kernel culls per triangle, as on one device.
+At sample rate the shade is pointwise per sample and each pixel's samples
+are summed in sample order on one rank, so the mesh frame equals the
+single-device sample-rate frame bit for bit, too. The JAX sharded path
+honours the rate only on its assembled branch (mixed samplers; taps without
+the fused pool or with the attrs boundary); its ``tiled_shade`` branch
+(``vktf_tpu/parallel/tiles.py:146-148``) never reads ``shading_rate`` and
+renders the single-chip pixel-rate frame, a fault that is not copied.
+
+The camera is rank 0's, so ranks whose viewers run different clocks still
+render one view. The stream order follows this rank's own camera (it
+orders the raster's input and never changes a pixel). The frustum cull of
+the JAX path's XLA setup branch is not needed: the setup kernel culls per
+triangle, as on one device.
 
 A gloo mesh on a card stages every collective through host memory
 (``RenderMesh._staged``): the several-ranks-on-one-card rehearsal, never a
@@ -70,7 +80,8 @@ import torch.distributed as dist
 
 from vktf_tpu_torch.config import RenderConfig
 from vktf_tpu_torch.ops import raster, setup_kernel, shade_table
-from vktf_tpu_torch.ops.pipeline import FrameProgram, pixel_centers, pixel_winner, to_device
+from vktf_tpu_torch.ops.pipeline import (FrameProgram, pixel_centers, pixel_winner,
+                                         sample_centers, to_device)
 from vktf_tpu_torch.scene.flatten import RenderScene, SceneMeta
 
 _BIG = float(2 ** 30)
@@ -261,10 +272,6 @@ class ShardedFrameProgram(FrameProgram):
     docstring says. Every rank of the mesh calls it once per frame."""
 
     def __init__(self, meta: SceneMeta, config: RenderConfig, mesh: RenderMesh):
-        if config.shading_rate == "sample":
-            raise ValueError(
-                "shading_rate='sample' with a mesh: the multi-device frame shades at pixel "
-                "rate (the JAX sharded path ignores the sample rate; the port refuses it)")
         super().__init__(meta, config)
         self.mesh = mesh
         gp, sp = mesh.shape
@@ -306,7 +313,8 @@ class ShardedFrameProgram(FrameProgram):
 
     def _consts(self, dev):
         """Per device: the global ids of the real columns, the padding's
-        setup column, and the centres of this rank's pixels."""
+        setup column, and the centres of this rank's pixels (at sample
+        rate the positions of their samples, sample-major)."""
         if self._shard_consts is None or self._shard_consts[0].device != dev:
             ids = torch.arange(self.row0, self.row0 + self.real, dtype=torch.float32,
                                device=dev)
@@ -315,9 +323,15 @@ class ShardedFrameProgram(FrameProgram):
             pad[19] = 1.0  # slim: no test reads the planes
             pad[24:26] = _BIG  # empty bbox
             pad[26:28] = -_BIG
-            sx, sy = pixel_centers(self.band_h, self.config.padded_width, dev, self.band_y0)
             px = slice(self.mesh.gp_rank * self.rank_px, (self.mesh.gp_rank + 1) * self.rank_px)
-            self._shard_consts = (ids, pad, sx[px].contiguous(), sy[px].contiguous(), px)
+            pw = self.config.padded_width
+            if self.config.shading_rate == "sample":
+                centers = [c.view(self._samples, -1)[:, px].reshape(-1) for c in sample_centers(
+                    self.band_h, pw, self.config.msaa_samples, dev, self.band_y0)]
+            else:
+                centers = [c[px].contiguous()
+                           for c in pixel_centers(self.band_h, pw, dev, self.band_y0)]
+            self._shard_consts = (ids, pad, *centers, px)
             self._background = to_device(self.config.clear_color[:3], dev)
         return self._shard_consts
 
@@ -370,13 +384,22 @@ class ShardedFrameProgram(FrameProgram):
                     every = mesh.all_gather(keys, "gp").wait()
                     keys = merge_keys(every.view(mesh.gp, *keys.shape), self.layers)
                 ids, depth = unpack_keys(keys)
-        with self._stage("winner"):
-            tri, frac = pixel_winner(ids, depth)
-            tri, frac = tri[..., px].contiguous(), frac[px].contiguous()
-        with self._stage("table_wait"):
-            table = table_pending.wait()
-        packed = self._shade_pixels(tri, frac, sx, sy, table, scene.quad_pool, cam, lights,
-                                    self._background)
+        if cfg.shading_rate == "sample":
+            with self._stage("slice"):
+                ids = ids.reshape(self.layers, self._samples, -1)[..., px].reshape(
+                    self.layers, -1)
+            with self._stage("table_wait"):
+                table = table_pending.wait()
+            packed = self._shade_samples(ids, sx, sy, table, scene.quad_pool, cam, lights,
+                                         self._background)
+        else:
+            with self._stage("winner"):
+                tri, frac = pixel_winner(ids, depth)
+                tri, frac = tri[..., px].contiguous(), frac[px].contiguous()
+            with self._stage("table_wait"):
+                table = table_pending.wait()
+            packed = self._shade_pixels(tri, frac, sx, sy, table, scene.quad_pool, cam, lights,
+                                        self._background)
         with self._stage("slice_gather"):
             rgb = torch.stack([((packed >> (8 * c)) & 0xFF).to(torch.uint8) for c in range(3)],
                               dim=1)  # (rank_px, 3)
