@@ -3,7 +3,8 @@
     python3 chip_smoke.py            # sponza preset, 1920x1080, 4x MSAA
     python3 chip_smoke.py --small    # the 38k-triangle courtyard at 256x128 (the
                                      # presets and the bench at 256x128 too)
-    python3 chip_smoke.py --four-cards  # phase 15d alone, on four cards
+    python3 chip_smoke.py --four-cards  # the launch off the current card and
+                                        # phase 15d alone, on four cards
 
 Needs one CUDA card and nvcc. In order, it:
   1. reports the card (nvidia-smi name and power limit);
@@ -27,6 +28,11 @@ Needs one CUDA card and nvcc. In order, it:
      events around launches queued behind a sleep kernel, and the
      profiler's kernel time), beside the wrapper; prints what the raster
      kernel stages for the frame's stream (staging_counts);
+  5b. holds the depth at every covered sample of that frame (setup and
+     raster kernels) to the float64 depth of its triangle through the same
+     float32 clip corners, computed in float64 on the card, within the
+     bound tests/torch_parity.py states (float64_depth_bound); prints the
+     median, p99 and max error;
   6. renders the same scene at a forced peel_layers=2: the frame must
      equal the K = 1 frame;
   7. the translucent path: the sponza preset with its curtain and clutter
@@ -104,7 +110,11 @@ Needs one CUDA card and nvcc. In order, it:
      record once a frame, the resolve records never), frame and stage times
      printed (4 ranks on one card over gloo: not a scaling number); d. with
      4 or more cards, the same cases over NCCL, one card a rank, else a line
-     saying it did not run;
+     saying it did not run. The launch on a card that is not the current
+     one (a Scene on cuda:1 with card 0 current, Engine() after
+     torch.cuda.set_device(1): each frame equal to card 0's bit for bit)
+     runs with --four-cards; a one-card run says on an early line that it
+     did not run;
  16. checks the frames (shape, dtype, the share of pixels lit: 50% for
      sponza paths, 5% for the single-object presets), saves them as .npy in
      the build directory (vktf_tpu_torch/_build/, not committed), and prints
@@ -167,7 +177,7 @@ FP32_OPS_PER_S = 67e12
 # windows) and the 24 texel decodes and filters of three textures at two
 # levels, plus per light the BRDF. The attrs kernels take the plane
 # evaluation and the addressing from phase A and do neither.
-SETUP_OPS = 400
+SETUP_OPS = 420
 RASTER_OPS = 20
 TABLE_OPS = 600
 SHADE_OPS_PLANES = 100
@@ -175,6 +185,17 @@ SHADE_OPS_TAIL = 200
 SHADE_OPS_ADDR_PER_TAP = 100
 SHADE_OPS_FILTER_PER_TAP = 600
 SHADE_OPS_PER_LIGHT = 120
+
+
+# The bound of a covered sample's depth against the float64 depth of its
+# triangle through the same float32 clip corners, as
+# tests/torch_parity.py's float64_depth_bound states it: 2^-20 plus 2^-16
+# of the plane's change across the triangle's bbox times the conditioning
+# of the screen-space solve; where the homogeneous plane stays (near-plane
+# crossers, insane projections), 128 roundings of its summand scale
+# (depth_plane_bound) in place of the second term.
+DEPTH_F64_ABS, DEPTH_F64_REL = 2.0 ** -20, 2.0 ** -16
+DEPTH_PLANE_ROUNDINGS = 128
 
 
 def log(*parts) -> None:
@@ -530,22 +551,124 @@ def mesh_spawn(label: str, scenes: dict, size, backend: str, flight: int) -> col
     return launches
 
 
+def depth_against_float64(rs, inst_rows, tri_instance, vp, setup, ids, depth, config) -> None:
+    """Phase 5b: the raster kernel's depth at every covered sample of the
+    frame (ids, depth (S, H, W) from the setup kernel's rows) against the
+    float64 depth of its triangle through the same float32 clip corners,
+    computed in float64 on the card (2D homogeneous: depth = z^T M^-1 s, M's
+    columns (xs, ys, w) of the corners), within the bound above."""
+    from vktf_tpu_torch.config import SAMPLE_OFFSETS
+    from vktf_tpu_torch.ops.setup_kernel import instance_rowsT
+    from vktf_tpu_torch.ops.vertex import clip_corners, setup_from_corners
+
+    width, height = config.width, config.height
+    corners = clip_corners(rs.tri_corner, instance_rowsT(inst_rows, tri_instance), vp)
+    flat = setup_from_corners(*corners, width, height)
+    homogeneous, inv_det = ~flat["use_screen"], flat["inv_det"].double().abs()
+    x, y, z, w = ([c.double() for c in row] for row in corners)
+    xs = [(x[i] + w[i]) * (0.5 * width) for i in range(3)]
+    ys = [(y[i] + w[i]) * (0.5 * height) for i in range(3)]
+    m = torch.stack([torch.stack(xs, -1), torch.stack(ys, -1), torch.stack(w, -1)], -2)
+    ok = torch.linalg.det(m).abs() > 0
+    minv = torch.zeros_like(m)
+    minv[ok] = torch.linalg.inv(m[ok])
+    co = torch.einsum("ti,tij->tj", torch.stack(z, -1), minv)
+    front = (w[0] > 1e-12) & (w[1] > 1e-12) & (w[2] > 1e-12)
+    px = [torch.where(front, xs[i] / w[i], 0.0) for i in range(3)]
+    py = [torch.where(front, ys[i] / w[i], 0.0) for i in range(3)]
+    p1 = (px[1] - px[0]) * (py[2] - py[0])
+    p2 = (px[2] - px[0]) * (py[1] - py[0])
+    cond = (p1.abs() + p2.abs()) / (p1 - p2).abs()
+    br = setup["bbox_rows"].double()
+    bw, bh = br[2] - br[0], br[3] - br[1]
+    screen = DEPTH_F64_REL * cond * (co[:, 0].abs() * bw + co[:, 1].abs() * bh)
+    e9 = setup["edge9"].double()
+    scale = [inv_det * sum((e9[3 * i + k] * z[i]).abs() for i in range(3)) for k in range(3)]
+    crosser = ~front
+    homog = 2.0 ** -24 * DEPTH_PLANE_ROUNDINGS * (
+        scale[0] * bw + scale[1] * bh + 1.0
+        + torch.where(crosser, scale[0] * br[0] + scale[1] * br[1] + scale[2], 0.0))
+    bound_t = DEPTH_F64_ABS + torch.where(homogeneous, homog, screen)
+    s, sy_i, sx_i = torch.nonzero(ids >= 0, as_tuple=True)
+    tri = ids[s, sy_i, sx_i].long()
+    offsets = torch.tensor(SAMPLE_OFFSETS[config.msaa_samples], dtype=torch.float64,
+                           device=ids.device)[s]
+    sx, sy = sx_i.double() + offsets[:, 0], sy_i.double() + offsets[:, 1]
+    exact = co[tri, 0] * sx + co[tri, 1] * sy + co[tri, 2]
+    err = (depth[s, sy_i, sx_i].double() - exact).abs()
+    ratio = err / bound_t[tri]
+    ranked = err.sort().values
+    median, p99 = (float(ranked[int(q * (ranked.numel() - 1))]) for q in (0.5, 0.99))
+    log(f"[depth] {err.numel()} covered samples ({int(homogeneous[tri].sum())} on homogeneous "
+        f"planes): |depth - float64| median {median:.3e}, p99 {p99:.3e}, max "
+        f"{float(ranked[-1]):.3e}; worst error / bound {float(ratio.max()):.4f} (bound: "
+        f"2^-20 + 2^-16 x K x the plane's change over the bbox; homogeneous planes: "
+        f"{DEPTH_PLANE_ROUNDINGS} roundings of the summand scale)")
+    require(bool((ratio <= 1.0).all()), "covered-sample depth within the float64 bound")
+
+
+def off_current_card(config, camera, assets, still, asset_dir) -> None:
+    """The launch off the current card, on a machine with two or more cards: a Scene on
+    cuda:1 while card 0 is current, and an Engine made after
+    torch.cuda.set_device(1) (the current card, which it must take), each
+    render the opaque sponza at `camera`; both frames must equal card 0's
+    `still` bit for bit."""
+    from vktf_tpu_torch.engine import Engine
+    from vktf_tpu_torch.loaders.ktx import SUPERCOMPRESSION_ZLIB
+    from vktf_tpu_torch.log import Log
+    from vktf_tpu_torch.models.export import export_asset
+    from vktf_tpu_torch.scene.scene import Scene
+    from vktf_tpu_torch.window import Window
+
+    quiet = Log(out_stream=sys.stderr, err_stream=sys.stderr)
+    torch.cuda.set_device(0)
+    other = Scene(assets, config, camera=camera, device="cuda:1")
+    frames = [other.render_async() for _ in range(FRAMES_IN_FLIGHT)]
+    require(torch.cuda.current_device() == 0, "rendering on cuda:1 leaves card 0 current")
+    require(all(f.device == torch.device("cuda", 1) for f in frames), "frames on cuda:1")
+    require(all(np.array_equal(f.cpu().numpy(), still) for f in frames),
+            "a Scene on cuda:1 with card 0 current renders card 0's frame bit for bit")
+    log(f"[current card] Scene(device=\"cuda:1\") with card 0 current: {FRAMES_IN_FLIGHT} "
+        "render_async frames on cuda:1, each equal to card 0's frame bit for bit")
+    del other, frames
+    files = [export_asset(a, asset_dir / "sponza", "rgba", quiet, SUPERCOMPRESSION_ZLIB)
+             for a in assets]
+    torch.cuda.set_device(1)
+    try:
+        engine = Engine(Window(width=config.width, height=config.height), config, quiet)
+        require(engine.device == torch.device("cuda", 1), f"Engine() took {engine.device}")
+        loaded = engine.load(files)
+        loaded.camera = camera
+        for _ in range(3):
+            engine.render(loaded)
+        engine.wait_idle()
+        presented = np.moveaxis(engine.window.last_frame[..., :3], -1, 0)
+        require(np.array_equal(presented, still),
+                "Engine() after set_device(1) presents card 0's frame bit for bit")
+    finally:
+        torch.cuda.set_device(0)
+    log("[current card] Engine() after torch.cuda.set_device(1): renders on cuda:1; its "
+        "presented frame equals card 0's frame bit for bit")
+
+
 def read_png(path) -> np.ndarray:
-    """An 8-bit RGBA PNG as the port's window writes it (filter 0 rows,
-    window.write_png), decoded with zlib."""
+    """An 8-bit RGB or RGBA PNG as the port's window writes it (filter 0
+    rows, window.write_png), decoded with zlib: (H, W, 3) or (H, W, 4)."""
     blob = path.read_bytes()
-    pos, idat, size = 8, b"", None
+    pos, idat, size, channels = 8, b"", None, None
     while pos < len(blob):
         length, kind = struct.unpack(">I4s", blob[pos:pos + 8])
         if kind == b"IHDR":
             size = struct.unpack(">II", blob[pos + 8:pos + 16])
+            channels = {2: 3, 6: 4}[blob[pos + 17]]
         elif kind == b"IDAT":
             idat += blob[pos + 8:pos + 8 + length]
         pos += 12 + length
     width, height = size
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(height, 1 + 4 * width)
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        height, 1 + channels * width)
     require(bool((rows[:, 0] == 0).all()), f"{path.name}: unfiltered rows")
-    return rows[:, 1:].reshape(height, width, 4)
+    return rows[:, 1:].reshape(height, width, channels)
 
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -706,8 +829,10 @@ def four_cards(args) -> int:
     """--four-cards: phase 15d alone, on a machine with four cards: the
     sources built, the opaque, translucent and mixed sponza's single-device
     stills on card 0 at pixel and sample rate (the opaque pixel-rate frame
-    also timed, synchronized and with 4 in flight: the one-card reference),
-    then MESH_CASES over NCCL, one card a rank."""
+    also timed, synchronized and with 4 in flight: the one-card reference,
+    and rendered on cuda:1 with card 0 current and by an Engine made
+    after torch.cuda.set_device(1): off_current_card), then MESH_CASES
+    over NCCL, one card a rank."""
     from vktf_tpu_torch.config import RenderConfig
     from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
     from vktf_tpu_torch.models.scenes import (SAMPLER_PRESETS, build_preset, set_blend,
@@ -759,6 +884,8 @@ def four_cards(args) -> int:
                 f"synchronized) {[round(v, 3) for v in frame_ms]}; with {FRAMES_IN_FLIGHT} in "
                 f"flight {(time.perf_counter() - t0) * 1e3 / n_flight:.4f} per frame over "
                 f"{n_flight}")
+            off_current_card(config, camera, assets, scn.render_still(),
+                             _cuda.BUILD_DIR / "assets_f5")
         sample = Scene.from_render_scene(scn.render_scene, scn.meta,
                                          config.replace(shading_rate="sample"), camera)
         scenes[key] = (scene_leaves(scn.render_scene), scn.meta,
@@ -803,6 +930,9 @@ def main() -> int:
     card = card_line()
     log("card:", card, "|", torch.cuda.get_device_name(0), "| torch",
         torch.__version__, "cuda", torch.version.cuda)
+    log("[current card] launches on a card that is not the current one (a Scene on cuda:1 "
+        "with card 0 current; Engine() after torch.cuda.set_device(1)): not run here, it "
+        "needs two cards and this run uses one; --four-cards runs it")
     # the K = 1 path's four, then the K-layer raster and every other shade
     kernels = [setup_kernel.KERNEL, raster.KERNEL, shade_table.KERNEL, shade_kernel.KERNEL,
                raster.KERNEL_LAYERS, *shade_kernel.KERNELS[1:]]
@@ -1060,6 +1190,10 @@ def main() -> int:
     record(raster.KERNEL, d_err, cuda_ms(lambda: raster.rasterize(*r_args), 10),
            cuda_ms(lambda: raster.rasterize_plain(*r_args), 2),
            raster_bound(stream, ph, pw, config.msaa_samples, 1))
+
+    # ---- 5b. the covered samples' depth against float64 -----------------
+    depth_against_float64(rs, inst_rows, tri_instance, vp, setup,
+                          ids[:, :height, :width], depth[:, :height, :width], config)
 
     # shade table
     t_args = (setup["edge9"], rs.tri_corner, rs.tri_static_cols, setup["anchor2"], inst_rows,

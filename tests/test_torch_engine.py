@@ -435,8 +435,12 @@ def test_write_png_reads_back_with_pil(tmp_path):
     rgba = np.random.default_rng(2).integers(0, 256, (13, 21, 4), dtype=np.uint8)
     np.testing.assert_array_equal(np.asarray(Image.open(write_png(tmp_path / "x.png", rgba))),
                                   rgba)
+    # three channels: colour type 2, no alpha plane (the viewer's stills)
+    rgb = Image.open(write_png(tmp_path / "y.png", rgba[..., :3]))
+    assert rgb.mode == "RGB"
+    np.testing.assert_array_equal(np.asarray(rgb), rgba[..., :3])
     with pytest.raises(ValueError):
-        write_png(tmp_path / "y.png", rgba[..., :3])
+        write_png(tmp_path / "z.png", rgba[..., :2])
 
 
 def test_frame_dir_pngs_are_the_presented_frames(tmp_path):

@@ -83,3 +83,38 @@ def test_game_main_frames_match_jax(msaa, tmp_path, monkeypatch):
     # the box is in view and the camera moves: the frames differ
     assert min(lit) > 0.05
     assert len({Image.open(g).tobytes() for g in got}) > 1
+
+
+def test_still_key_writes_the_jax_viewers_rgb_still(tmp_path, monkeypatch):
+    """'p' (KEY_P) saves still_00000.png at the start camera: an (H, W, 3)
+    RGB PNG (colour type 2, no alpha plane), as the JAX viewer's, with the
+    JAX viewer's pixels within the frame budget."""
+    from PIL import Image
+
+    import vktf_tpu.engine
+    import vktf_tpu_torch.engine
+    from vktf_tpu.config import RenderConfig as JaxConfig
+    from vktf_tpu.game import start as jax_start
+    from vktf_tpu.window import KEY_P as JAX_KEY_P, ScriptedInput as JaxScript
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.game import start
+    from vktf_tpu_torch.window import KEY_P, ScriptedInput
+
+    monkeypatch.setattr(vktf_tpu.engine, "DeltaTime", _FixedDeltaTime)
+    monkeypatch.setattr(vktf_tpu_torch.engine, "DeltaTime", _FixedDeltaTime)
+    path = str(_textured_box(tmp_path / "asset"))
+    start([path], 64, 48, RenderConfig(width=64, height=48, msaa_samples=4),
+          ScriptedInput([lambda window: window.press_key(KEY_P)]),
+          frame_dir=tmp_path / "port", display=None, device="cpu")
+    with tp._jax_native_mips(False):
+        jax_start([path], 64, 48,
+                  JaxConfig(width=64, height=48, msaa_samples=4, backend="pallas"),
+                  JaxScript([lambda window: window.press_key(JAX_KEY_P)]),
+                  frame_dir=tmp_path / "jax", display=None)
+    got = Image.open(tmp_path / "port" / "still_00000.png")
+    want = Image.open(tmp_path / "jax" / "still_00000.png")
+    assert got.mode == want.mode == "RGB"
+    a, b = np.asarray(got), np.asarray(want)
+    assert a.shape == b.shape == (48, 64, 3)
+    assert (a.max(axis=-1) > 0).mean() > 0.05  # the box is in view
+    tp.assert_frames_close(np.moveaxis(a, -1, 0), np.moveaxis(b, -1, 0), (3, 48, 64))

@@ -38,11 +38,30 @@ PEEL_K = 3
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "production_frame.png"
 
 
-def _assert_frames_close(got, want):
+# Pixels of the translucent courtyard's 256x128 4x frame at K = 3 where
+# the JAX package's winner of a layer is the wrong one by float64 depth
+# (its depth planes' cancellation noise, tests/test_torch_setup.py), and
+# the two winners shade more than one u8 step apart; checked by
+# tp.checked_jax_wrong.
+JAX_WRONG = [
+    (14, 58), (16, 77), (32, 76), (32, 130), (33, 130), (36, 130), (39, 179), (45, 171),
+    (46, 171), (47, 171), (54, 130), (60, 125), (61, 125), (64, 130), (65, 130), (68, 125),
+    (85, 78), (85, 177), (87, 139), (88, 174), (98, 218),
+]
+
+
+def _assert_frames_close(got, want, jax_wrong=()):
     assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
     diff = np.abs(got.astype(np.int16) - want).max(axis=0)
-    assert diff.max() <= 1, int(diff.max())
+    for y, x in jax_wrong:
+        diff[y, x] = 0
+    assert diff.max() <= 1, (int(diff.max()), np.argwhere(diff > 1)[:40].tolist())
     assert (diff > 0).mean() <= 5e-3, float((diff > 0).mean())
+
+
+def _assert_blend_frames_close(got, want):
+    _assert_frames_close(got, want, tp.checked_jax_wrong(JAX_WRONG, tp.WIDTH, tp.HEIGHT, 4,
+                                                          PEEL_K))
 
 
 def _port_config(**kw):
@@ -75,7 +94,7 @@ def test_translucent_frame_matches_jax_on_the_jax_scene():
                    device="cpu").render_still()
     # the blend shows: a visible share of pixels differs from the opaque frame
     assert (np.abs(want.astype(np.int16) - opaque).max(axis=0) > 8).mean() > 0.05
-    _assert_frames_close(scene.render_still(), want)
+    _assert_blend_frames_close(scene.render_still(), want)
 
 
 def test_translucent_scene_from_preset_matches_jax():
@@ -85,7 +104,7 @@ def test_translucent_scene_from_preset_matches_jax():
     scene = Scene(tp.torch_assets("sponza_small_blend"),
                   _port_config(peel_layers=PEEL_K), camera=tcam, device="cpu")
     assert scene.meta.peel_layers == 8
-    _assert_frames_close(scene.render_still(), _jax_blend_frame())
+    _assert_blend_frames_close(scene.render_still(), _jax_blend_frame())
 
 
 def test_golden_production_frame(tmp_path):

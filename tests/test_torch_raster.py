@@ -33,7 +33,7 @@ def _port_raster(tri_data, bbox_rows, valid, height, width, msaa):
     return ids.numpy(), depth.numpy()
 
 
-@pytest.mark.parametrize("msaa", [1, 4])
+@pytest.mark.parametrize("msaa", [1, 2, 4, 8])
 def test_raster_matches_jax_kernel(msaa):
     from vktf_tpu.ops.raster_pallas import rasterize_pallas, stream_perm
 

@@ -29,12 +29,20 @@ import torch_parity as tp
 tp.limit_threads()
 
 
+# Per case, the pixels where the JAX package's nearest fragments of a
+# sample are the wrong ones by float64 depth (its depth planes'
+# cancellation noise, tests/test_torch_setup.py) and the frames differ by
+# more than one u8 step; checked by tp.checked_jax_wrong.
+JAX_WRONG = {"opaque": [(1, 21), (40, 54)], "blend": [(1, 21), (40, 54)]}
+
+
 @pytest.mark.parametrize("name, kw, layers", [
     ("sponza_small", {}, 1),
     ("sponza_small_blend", {"peel_layers": 2}, 2),
 ], ids=["opaque", "blend"])
 def test_sample_rate_frame_matches_jax(name, kw, layers):
-    tp.check_sample_frame(name, 96, 64, kw, ("fused", 1), layers)
+    case = "opaque" if layers == 1 else "blend"
+    tp.check_sample_frame(name, 96, 64, kw, ("fused", 1), layers, JAX_WRONG[case])
 
 
 def test_sample_path_routing():

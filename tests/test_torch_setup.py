@@ -21,6 +21,23 @@ bbox by 128 roundings of the summand scale:
 |d_port - d_jax| <= 128 * 2^-24 * (S_a * bbox_w + S_b * bbox_h + S_c + 1),
 S_k = |inv_det| * sum_i |cof_i[k] * z_i| (S_c and the absolute anchor terms
 only for near-plane crossers, whose constant comes from the raw plane).
+
+That bound holds where the port still computes the JAX package's
+homogeneous plane: near-plane crossers and projections too large for
+screen-space planes. Everywhere else the port solves the plane from the
+corners' NDC-z differences over their screen positions instead, to keep
+the per-pixel winner off the cancellation noise, so its rows 9..11 are
+held to the float64 plane through the same float32 clip corners: at the
+triangle's projected corners and at every covered sample of the small
+courtyard, within tp.float64_depth_bound (its bound was stated before the
+first run), and no farther from it than the JAX package's plane beyond
+that bound. The homogeneous plane's error is not
+bounded by the rounding of its summands alone: its cofactors cancel too
+(ys_i w_j - w_i ys_j for corners of close w), so on 567 of the courtyard's
+16,105 valid triangles the port's plane lies outside the bound above (by
+up to 104 times it), while at the courtyard's covered samples (4x) it is
+off float64 by a median of 2.1e-8 and at most 1.1e-7, against JAX's
+5.6e-7 and 9.9e-4.
 """
 
 import numpy as np
@@ -57,16 +74,34 @@ def _port_setup(tri_corner, inst_rows, tri_instance, vp):
     mrowsT = tp.as_torch(tp.gathered_rowsT(inst_rows, tri_instance))
     flat = setup_from_corners(*clip_corners(corners, mrowsT, vp_t), tp.WIDTH, tp.HEIGHT)
     out["inv_det"] = flat["inv_det"].numpy()
+    out["use_screen"] = flat["use_screen"].numpy()
     return out
 
 
-def _clip_z(tri_corner, mrowsT, vp):
-    from vktf_tpu_torch.ops.vertex import clip_corners
+def _plane_at(td, sx, sy, ax, ay):
+    """A setup's depth plane (rows 9..11) at points, in float64."""
+    a, b, c = (np.asarray(td[r], np.float64) for r in (9, 10, 11))
+    return a * (sx - ax) + b * (sy - ay) + c
 
-    _x, _y, z, w = clip_corners(tp.as_torch(tri_corner), tp.as_torch(mrowsT),
-                                tp.as_torch(np.asarray(vp, np.float32)))
-    return ([zi.numpy().astype(np.float64) for zi in z],
-            [wi.numpy() for wi in w])
+
+def _assert_screen_planes_f64(got, want, clip, cols):
+    """The screen-space depth planes at the triangles' projected corners
+    against float64 (module docstring)."""
+    x, y, z, w = clip
+    co, cond = tp.float64_depth_planes(x, y, z, w, tp.WIDTH, tp.HEIGHT)
+    bound = tp.float64_depth_bound(co, cond, np.zeros_like(cols), want["edge9"],
+                                   want["bbox_rows"], got["inv_det"], z, w)
+    ax, ay = (want["anchor2"][r].astype(np.float64) for r in (0, 1))
+    for i in range(3):
+        px = (x[i] + w[i]) * 0.5 * tp.WIDTH / w[i]
+        py = (y[i] + w[i]) * 0.5 * tp.HEIGHT / w[i]
+        exact = z[i] / w[i]
+        err = np.abs(_plane_at(got["tri_data"], px, py, ax, ay) - exact)
+        jerr = np.abs(_plane_at(want["tri_data"], px, py, ax, ay) - exact)
+        bad = cols & ((err > bound) | (err > jerr + bound))
+        assert not bad.any(), (
+            f"{int(bad.sum())} depth planes off float64 at corner {i}, worst ratio "
+            f"{float((err / bound)[cols].max())}")
 
 
 def _assert_depth_planes_close(got, want, z, w, valid):
@@ -87,7 +122,7 @@ def _assert_depth_planes_close(got, want, z, w, valid):
         f"{float((worst / bound)[valid].max())}")
 
 
-def _assert_setup_equal(got, want, z, w, max_inconsistent):
+def _assert_setup_equal(got, want, clip, max_inconsistent):
     np.testing.assert_array_equal(got["valid"], want["valid"])
     np.testing.assert_array_equal(got["bbox_rows"], want["bbox_rows"])
     tp.assert_bits_equal(got["anchor2"], want["anchor2"], "anchor2")
@@ -113,7 +148,9 @@ def _assert_setup_equal(got, want, z, w, max_inconsistent):
     # invalid triangles' plane rows are never read (id -1 never hits)
     tp.assert_bits_equal(td_g[EDGE_W_ROWS][:, cols], td_w[EDGE_W_ROWS][:, cols],
                          "edge and w-plane rows")
-    _assert_depth_planes_close(got, want, z, w, cols)
+    screen = got["use_screen"]
+    _assert_depth_planes_close(got, want, clip[2], clip[3], cols & ~screen)
+    _assert_screen_planes_f64(got, want, clip, cols & screen)
 
 
 def test_setup_matches_jax_on_sponza_small():
@@ -124,7 +161,7 @@ def test_setup_matches_jax_on_sponza_small():
                                               scene.inst_node.shape[0])
     got = _port_setup(tri_corner, inst_rows, tri_instance, vp)
     assert got["valid"].sum() > 1000
-    _assert_setup_equal(got, setup, *_clip_z(tri_corner, setup["mrows"].T, vp),
+    _assert_setup_equal(got, setup, tp.clip_f64(tri_corner, setup["mrows"].T, vp),
                         max_inconsistent=1)
 
 
@@ -151,7 +188,7 @@ def _check_special_cases(tri_corner, inst_rows, tri_instance):
     assert 0 < want["valid"].sum() < want["valid"].size
     assert (td[SLIM_ROW] == 0).any() and (td[SLIM_ROW] == 1).any()
     assert (td[FILL_ROWS] == -1).any() and (td[FILL_ROWS] == 0).any()
-    _assert_setup_equal(got, want, *_clip_z(tri_corner, mrowsT, vp),
+    _assert_setup_equal(got, want, tp.clip_f64(tri_corner, mrowsT, vp),
                         max_inconsistent=len(want["valid"]) // 50)
 
 
@@ -195,3 +232,56 @@ def test_raster_prologue_matches_jax(msaa, monkeypatch):
     np.testing.assert_array_equal(
         chunk_bbox.numpy(),
         np.concatenate([b[:2].min(axis=2), b[2:].max(axis=2)]))
+
+
+@pytest.mark.parametrize("msaa", [4, 8])
+def test_covered_sample_depth_matches_float64(msaa):
+    """At every covered sample of the small courtyard at 256x128 (the
+    port's setup and raster), the depth is within tp.float64_depth_bound
+    of the float64 depth of its triangle through the same clip corners,
+    and no farther
+    from it than the JAX setup's plane of that triangle at that sample
+    beyond the same bound."""
+    from vktf_tpu_torch.config import SAMPLE_OFFSETS
+    from vktf_tpu_torch.ops.fmath import fma
+    from vktf_tpu_torch.ops.raster import rasterize, raster_stream, stream_perm
+
+    setup, _lights, vp = tp.jax_setup("sponza_small")
+    scene, _meta = tp.jax_scene("sponza_small")
+    tri_corner = np.asarray(scene.tri_corner)
+    inst_rows, tri_instance = tp.instances_of(setup["mrows"], scene.tri_instance,
+                                              scene.inst_node.shape[0])
+    got = _port_setup(tri_corner, inst_rows, tri_instance, vp)
+    td = tp.as_torch(got["tri_data"])
+    bbox = tp.as_torch(got["bbox_rows"])
+    stream = raster_stream(td, bbox, stream_perm(bbox, tp.as_torch(got["valid"])))
+    ids, depth = (a.numpy() for a in rasterize(*stream, tp.HEIGHT, tp.WIDTH, msaa))
+    s, py, px = np.nonzero(ids >= 0)
+    assert s.size > 0.5 * ids.size
+    tri = ids[s, py, px]
+
+    x, y, z, w = tp.clip_f64(tri_corner, setup["mrows"].T, vp)
+    co, cond = tp.float64_depth_planes(x, y, z, w, tp.WIDTH, tp.HEIGHT)
+    bound = tp.float64_depth_bound(co, cond, ~got["use_screen"], setup["edge9"], setup["bbox_rows"],
+                       got["inv_det"], z, w)[tri]
+    offsets = np.asarray(SAMPLE_OFFSETS[msaa], np.float64)[s]
+    sx, sy = px + offsets[:, 0], py + offsets[:, 1]
+    exact = co[tri, 0] * sx + co[tri, 1] * sy + co[tri, 2]
+    # JAX's plane of the same triangle, evaluated as the raster evaluates
+    jrows = tp.as_torch(setup["tri_data"][9:12, tri])
+    ax = tp.as_torch(setup["bbox_rows"][0, tri])
+    ay = tp.as_torch(setup["bbox_rows"][1, tri])
+    dx = tp.as_torch(px.astype(np.float32) + offsets[:, 0].astype(np.float32)) - ax
+    dy = tp.as_torch(py.astype(np.float32) + offsets[:, 1].astype(np.float32)) - ay
+    jdepth = (fma(jrows[1], dy, jrows[0] * dx) + jrows[2]).numpy().astype(np.float64)
+
+    err = np.abs(depth[s, py, px].astype(np.float64) - exact)
+    jerr = np.abs(jdepth - exact)
+    print(f"msaa {msaa}: {s.size} covered samples; |depth - float64| port median "
+          f"{np.median(err):.3g} p99 {np.percentile(err, 99):.3g} max {err.max():.3g}; "
+          f"JAX median {np.median(jerr):.3g} p99 {np.percentile(jerr, 99):.3g} "
+          f"max {jerr.max():.3g}")
+    assert (err <= bound).all(), (
+        f"{int((err > bound).sum())} samples off float64, worst ratio "
+        f"{float((err / bound).max())}")
+    assert (err <= jerr + bound).all(), int((err > jerr + bound).sum())

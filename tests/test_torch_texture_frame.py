@@ -42,14 +42,53 @@ def _port_scene(name: str, **kw):
                                    tp.port_meta(jmeta), _port_config(**kw), camera=tcam)
 
 
-@pytest.mark.parametrize("name, kw, form", [
-    ("sponza_small", {"aniso_taps": 4}, ("fused", 4, False)),
-    ("sponza_small_mirror", {}, ("classic", 1, False)),
-    ("sponza_small_mixed", {}, ("per_slot", 1, False)),
-    ("sponza_small", {"shade_attrs_boundary": True}, ("classic", 1, True)),
-    ("sponza_small_blend_mixed", {"peel_layers": 3}, ("per_slot", 1, False)),
+# Per case, the pixels where the JAX package's winner (a sample's nearest
+# fragments or a layer's pixel winner) is the wrong one by float64 depth
+# (its depth planes' cancellation noise, tests/test_torch_setup.py) and
+# the two winners shade more than one u8 step apart; checked by
+# tp.checked_jax_wrong.
+JAX_WRONG = {
+    "taps4": [
+        (11, 60), (14, 58), (16, 77), (28, 53), (33, 130), (36, 130), (39, 179), (45, 171),
+        (46, 171), (47, 171), (54, 130), (60, 125), (61, 125), (64, 130), (65, 130), (68, 125),
+        (85, 78), (85, 177), (86, 142), (87, 139), (88, 174), (98, 218), (106, 103), (107, 100),
+        (112, 225), (114, 114),
+    ],
+    "mirror": [
+        (11, 60), (14, 58), (16, 77), (28, 53), (32, 130), (33, 130), (36, 130), (39, 179),
+        (45, 171), (46, 171), (47, 171), (54, 130), (60, 125), (61, 125), (64, 130), (65, 130),
+        (68, 125), (80, 142), (83, 137), (85, 78), (85, 177), (86, 138), (86, 142), (87, 139),
+        (88, 174), (98, 179), (98, 218), (107, 96), (107, 100), (114, 114),
+    ],
+    "mixed": [
+        (11, 60), (14, 58), (16, 77), (28, 53), (32, 130), (33, 130), (36, 130), (39, 179),
+        (45, 171), (46, 171), (47, 171), (54, 130), (60, 125), (61, 125), (64, 130), (65, 130),
+        (68, 125), (80, 142), (83, 137), (85, 78), (85, 177), (86, 138), (86, 142), (87, 139),
+        (88, 174), (98, 179), (98, 218), (107, 96), (107, 100), (114, 114),
+    ],
+    "attrs": [
+        (11, 60), (14, 58), (16, 77), (28, 53), (32, 130), (33, 130), (36, 130), (39, 179),
+        (45, 171), (46, 171), (47, 171), (54, 130), (60, 125), (61, 125), (64, 130), (65, 130),
+        (68, 125), (83, 137), (85, 78), (85, 177), (86, 142), (87, 139), (88, 174), (98, 179),
+        (98, 218), (107, 100), (114, 114),
+    ],
+    "mixed_blend_k3": [
+        (14, 58), (16, 77), (32, 76), (32, 130), (33, 130), (36, 130), (39, 179), (45, 171),
+        (46, 171), (47, 171), (54, 130), (60, 125), (61, 125), (64, 130), (65, 130), (68, 125),
+        (85, 78), (85, 177), (87, 139), (88, 174), (98, 218),
+    ],
+}
+
+
+@pytest.mark.parametrize("name, kw, form, case", [
+    ("sponza_small", {"aniso_taps": 4}, ("fused", 4, False), "taps4"),
+    ("sponza_small_mirror", {}, ("classic", 1, False), "mirror"),
+    ("sponza_small_mixed", {}, ("per_slot", 1, False), "mixed"),
+    ("sponza_small", {"shade_attrs_boundary": True}, ("classic", 1, True), "attrs"),
+    ("sponza_small_blend_mixed", {"peel_layers": 3}, ("per_slot", 1, False),
+     "mixed_blend_k3"),
 ], ids=["taps4", "mirror", "mixed", "attrs", "mixed_blend_k3"])
-def test_texture_frame_matches_jax(name, kw, form):
+def test_texture_frame_matches_jax(name, kw, form, case):
     scene, _meta = tp.jax_scene(name)
     jcam, _ = tp.cameras()
     jkw = dict(kw)
@@ -59,12 +98,9 @@ def test_texture_frame_matches_jax(name, kw, form):
     got_form = port.frame_program.form
     assert (got_form.texels, got_form.taps, got_form.attrs) == form
     got = port.render_still()
-    assert got.shape == want.shape == (3, tp.HEIGHT, tp.WIDTH)
-    assert got.dtype == want.dtype == np.uint8
     assert (want.max(axis=0) > 0).mean() > 0.5
-    diff = np.abs(got.astype(np.int16) - want).max(axis=0)
-    assert diff.max() <= 1, int(diff.max())
-    assert (diff > 0).mean() <= 5e-3, float((diff > 0).mean())
+    tp.assert_frames_close(got, want, (3, tp.HEIGHT, tp.WIDTH), tp.checked_jax_wrong(
+        JAX_WRONG[case], tp.WIDTH, tp.HEIGHT, 4, kw.get("peel_layers", 1)))
     if kw.get("aniso_taps", 1) > 1:  # the taps act
         single = _port_scene(name).render_still()
         assert (np.abs(got.astype(np.int16) - single).max(axis=0) > 1).mean() > 0.01

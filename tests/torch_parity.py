@@ -303,6 +303,163 @@ def depth_plane_bound(edge9, bbox_rows, inv_det, z, w) -> np.ndarray:
         + np.where(crosser, scale[0] * br[0] + scale[1] * br[1] + scale[2], 0.0))
 
 
+def clip_f64(tri_corner, mrowsT, vp):
+    """The port's float32 clip corners as float64: x, y, z, w, each a list
+    of the three corners' (T,) arrays."""
+    from vktf_tpu_torch.ops.vertex import clip_corners
+
+    return [[c.numpy().astype(np.float64) for c in row] for row in clip_corners(
+        as_torch(tri_corner), as_torch(mrowsT), as_torch(np.asarray(vp, np.float32)))]
+
+
+def float64_depth_planes(x, y, z, w, width: int, height: int):
+    """Per triangle, the float64 depth plane through clip corners, as (T, 3)
+    coefficients of depth = co . (sx, sy, 1) in pixels (2D homogeneous:
+    depth = z^T M^-1 s, M's columns (xs, ys, w) of the corners), and the
+    conditioning K of its screen-space solve, (|ex1 ey2| + |ex2 ey1|) /
+    |ex1 ey2 - ex2 ey1| over the projected edges (inf where a corner is
+    not in front of the eye)."""
+    xs = [(x[i] + w[i]) * 0.5 * width for i in range(3)]
+    ys = [(y[i] + w[i]) * 0.5 * height for i in range(3)]
+    m = np.stack([np.stack(xs, -1), np.stack(ys, -1), np.stack(w, -1)], -2)
+    ok = np.abs(np.linalg.det(m)) > 0
+    minv = np.zeros_like(m)
+    minv[ok] = np.linalg.inv(m[ok])
+    co = np.einsum("ti,tij->tj", np.stack(z, -1), minv)
+    front = (w[0] > 1e-12) & (w[1] > 1e-12) & (w[2] > 1e-12)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        px = [np.where(front, xs[i] / w[i], 0.0) for i in range(3)]
+        py = [np.where(front, ys[i] / w[i], 0.0) for i in range(3)]
+        p1, p2 = (px[1] - px[0]) * (py[2] - py[0]), (px[2] - px[0]) * (py[1] - py[0])
+        cond = (np.abs(p1) + np.abs(p2)) / np.abs(p1 - p2)
+    return co, np.where(front & ok, cond, np.inf)
+
+
+# The bound of a depth from the port's setup against the float64 depth
+# at a point of its triangle, stated before the first run: 2^-20 (16
+# float32 ulps at depths 0.5..1: the corners' NDC z and the evaluation
+# round) plus 2^-16 of the plane's change across the triangle's bbox times
+# the conditioning K of the screen-space solve (the corners' float32
+# screen positions round, which tilts the plane by their error over the
+# triangle's height, K ~ length / height). Where the port keeps the
+# homogeneous plane (near-plane crossers, insane projections),
+# depth_plane_bound takes the place of the second term.
+F64_ABS, F64_REL = 2.0 ** -20, 2.0 ** -16
+
+
+def float64_depth_bound(co, cond, homogeneous, edge9, bbox_rows, inv_det, z, w):
+    """Per triangle, the bound above: co, cond from float64_depth_planes,
+    homogeneous (T,) bool, the rest as depth_plane_bound's."""
+    br = np.asarray(bbox_rows).astype(np.float64)
+    bw, bh = br[2] - br[0], br[3] - br[1]
+    with np.errstate(invalid="ignore"):
+        screen = F64_REL * cond * (np.abs(co[:, 0]) * bw + np.abs(co[:, 1]) * bh)
+    return F64_ABS + np.where(
+        homogeneous, depth_plane_bound(edge9, bbox_rows, inv_det, z, w), screen)
+
+
+@functools.lru_cache(maxsize=None)
+def raster_pair(width: int, height: int, msaa: int, layers: int):
+    """Both packages' per-sample visibility of the small courtyard's
+    geometry (every sponza_small variant shares it) from the parity
+    camera, each from its own setup: the JAX setup kernel and raster
+    (interpret mode) and the port's plain versions. Returns (JAX ids, JAX
+    depth, port ids, port depth), each (K, S, height, width), and the
+    (T, 3) float64 depth planes (float64_depth_planes)."""
+    import jax
+
+    from vktf_tpu.ops.raster_pallas import rasterize_pallas, stream_perm as jax_perm
+    from vktf_tpu_torch.ops.raster import rasterize, raster_stream, stream_perm
+    from vktf_tpu_torch.ops.setup_kernel import setup_pack
+
+    name = "sponza_small"
+    scene, _meta = jax_scene(name)
+    jcam, _ = cameras(width, height)
+    vp = jcam.view_projection_transform
+    cfg = jax_config(msaa, width=width, height=height, peel_layers=layers)
+    setup, _lights = jax_program(name, msaa, peel_layers=layers, width=width,
+                                 height=height)._prepare(scene, vp, jcam.position)
+    setup = {k: np.asarray(v) for k, v in setup.items()}
+    ph, pw = cfg.padded_height, cfg.padded_width
+    jids, jdepth = (np.asarray(a) for a in jax.jit(lambda s: rasterize_pallas(
+        s, ph, pw, tile_shape=cfg.tile_shape, msaa_samples=msaa, chunk=cfg.pallas_chunk,
+        interpret=True, sort="none", perm=jax_perm(s, chunk=cfg.pallas_chunk),
+        group_size=cfg.raster_group_size, interleave=cfg.resolved_interleave(),
+        layers=layers))({k: setup[k] for k in ("tri_data", "bbox_rows", "valid")}))
+    tri_corner = np.asarray(scene.tri_corner)
+    inst_rows, tri_instance = instances_of(setup["mrows"], scene.tri_instance,
+                                           scene.inst_node.shape[0])
+    port = setup_pack(as_torch(tri_corner), as_torch(inst_rows), as_torch(tri_instance),
+                      as_torch(np.asarray(vp, np.float32)), width, height)
+    stream = raster_stream(port["tri_data"], port["bbox_rows"],
+                           stream_perm(port["bbox_rows"], port["valid"]))
+    pids, pdepth = (a.numpy() for a in rasterize(*stream, ph, pw, msaa, layers))
+    co, _cond = float64_depth_planes(*clip_f64(tri_corner, setup["mrows"].T, vp),
+                                     width, height)
+    shape = (layers, msaa, ph, pw)
+    return tuple(a.reshape(shape)[..., :height, :width]
+                 for a in (jids, jdepth, pids, pdepth)) + (co,)
+
+
+def _pixel_winners(ids, depth):
+    """Each layer's pixel winner, (K, S, ...) -> (K, ...): min depth, then
+    min id, among the covered samples (-1 when none), as pixel_winner."""
+    ids = np.asarray(ids, np.int64)
+    big = np.iinfo(np.int64).max
+    d_min = np.where(ids >= 0, depth, np.inf).min(axis=1, keepdims=True)
+    tri = np.where((depth == d_min) & (ids >= 0), ids, big).min(axis=1)
+    return np.where(tri == big, -1, tri)
+
+
+def jax_wrong_pixels(width: int, height: int, msaa: int, layers: int = 1,
+                     rate: str = "pixel") -> set:
+    """The pixels of the small courtyard whose winners the port gets right
+    by float64 depth and the JAX package gets wrong: set of (y, x).
+
+    The winners are each sample's K nearest (depth, id) fragments and, at
+    pixel rate, each layer's pixel winner (its nearest sample's triangle).
+    The float64 winners re-sort the fragments either package found at a
+    sample by the float64 depth of their triangles there; a package is
+    right where its winners equal them (raster_pair's inputs)."""
+    from vktf_tpu_torch.config import SAMPLE_OFFSETS
+
+    jids, jdepth, pids, pdepth, co = raster_pair(width, height, msaa, layers)
+    differ = (jids != pids).any(axis=(0, 1))
+    if rate == "pixel":  # the pixel winners follow the depths
+        differ |= (_pixel_winners(jids, jdepth) != _pixel_winners(pids, pdepth)).any(axis=0)
+    wrong = set()
+    for y, x in np.argwhere(differ):
+        true_ids = np.full((layers, msaa), -1)
+        true_depth = np.ones((layers, msaa))
+        for s, (ox, oy) in enumerate(SAMPLE_OFFSETS[msaa]):
+            found = {int(t) for t in (*jids[:, s, y, x], *pids[:, s, y, x]) if t >= 0}
+            frags = sorted((float(co[t] @ (x + ox, y + oy, 1.0)), t) for t in found)[:layers]
+            for k, (d, t) in enumerate(frags):
+                true_ids[k, s], true_depth[k, s] = t, d
+
+        def right(ids, depth):
+            same = np.array_equal(ids, true_ids)
+            if rate == "pixel":
+                same &= np.array_equal(_pixel_winners(ids, depth),
+                                       _pixel_winners(true_ids, true_depth))
+            return same
+
+        if (right(pids[..., y, x], pdepth[..., y, x])
+                and not right(jids[..., y, x], jdepth[..., y, x])):
+            wrong.add((int(y), int(x)))
+    return wrong
+
+
+def checked_jax_wrong(listed, width: int, height: int, msaa: int, layers: int = 1,
+                      rate: str = "pixel"):
+    """listed, after asserting that JAX's winner is the wrong one by
+    float64 depth at each of its pixels (jax_wrong_pixels)."""
+    if listed:
+        unproven = set(map(tuple, listed)) - jax_wrong_pixels(width, height, msaa, layers, rate)
+        assert not unproven, f"JAX's winner is not proven wrong at {sorted(unproven)}"
+    return listed
+
+
 def port_camera(width: int = WIDTH, height: int = HEIGHT):
     """The port's camera at the parity tests' pose (no JAX import)."""
     from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
@@ -485,13 +642,17 @@ def pool_u16(pool) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(pool)).view(np.uint16)
 
 
-def assert_frames_close(got, want, shape) -> None:
+def assert_frames_close(got, want, shape, jax_wrong=()) -> None:
     """The frame budget of the port's frame parity tests: one u8 step on
-    at most 0.5% of the pixels."""
+    at most 0.5% of the pixels. jax_wrong: pixels (y, x) where the JAX
+    package's winner is the wrong one by float64 depth (the test checks
+    them with jax_wrong_pixels); the budget holds apart from them."""
     assert got.shape == want.shape == shape
     assert got.dtype == want.dtype == np.uint8
     diff = np.abs(got.astype(np.int16) - want).max(axis=0)
-    assert diff.max() <= 1, int(diff.max())
+    for y, x in jax_wrong:
+        diff[y, x] = 0
+    assert diff.max() <= 1, (int(diff.max()), np.argwhere(diff > 1)[:40].tolist())
     assert (diff > 0).mean() <= 5e-3, float((diff > 0).mean())
 
 
@@ -513,15 +674,16 @@ def sample_rate_frames(name: str, width: int, height: int, **kw):
     return port, port.render_still(), want
 
 
-def check_sample_frame(name, width, height, kw, form, layers):
+def check_sample_frame(name, width, height, kw, form, layers, jax_wrong=()):
     """The port's sample-rate frame within the budget of JAX's, through
     the expected shade form at the expected K, and not the pixel-rate
-    frame."""
+    frame; jax_wrong as assert_frames_close's, checked."""
     port, got, want = sample_rate_frames(name, width, height, **kw)
     prog = port.frame_program
     assert (prog.form.texels, prog.form.taps, prog.layers) == (*form, layers)
     assert (want.max(axis=0) > 0).mean() > 0.5
-    assert_frames_close(got, want, (3, height, width))
+    assert_frames_close(got, want, (3, height, width),
+                        checked_jax_wrong(jax_wrong, width, height, 4, layers, "sample"))
     pixel = type(port).from_render_scene(
         port.render_scene, port.meta, port.config.replace(shading_rate="pixel"),
         camera=port.camera).render_still()

@@ -22,6 +22,17 @@ from typing import Optional, Tuple
 MAX_RENDER_FRAMES = 2
 
 _SUPPORTED_MSAA = (8, 4, 2, 1)
+
+
+def select_msaa_samples(requested: int) -> int:
+    """The highest supported MSAA count <= requested, else 1: the
+    reference's "max supported of {8, 4, 2} else 1" probe
+    (src/engine/engine.cppm:157-171); the raster takes all of them."""
+    for samples in _SUPPORTED_MSAA:
+        if requested >= samples:
+            return samples
+    return 1
+
 # anisotropic tap counts the shade kernels take (1/N exact in float32)
 ANISO_TAPS = (1, 2, 4, 8)
 

@@ -183,12 +183,28 @@ __global__ void setup_kernel(const float* __restrict__ tc, const float4* __restr
 #pragma unroll
   for (int e = 0; e < 3; ++e) er[e] = use_screen ? sedges[e] : edges[e];
 
-  const float z_ndc0 = z[0] / safe_w[0];
+  // depth plane: the homogeneous form (cofactor x clip z, which cancels by
+  // ~1e5) for near-plane crossers and insane projections; on the
+  // screen-space path the slopes from the corners' NDC-z differences over
+  // the screen positions, whose error scales with the triangle's depth range
+  const float d0 = z[0] / safe_w[0], d1 = z[1] / safe_w[1], d2 = z[2] / safe_w[2];
+  const float z_ndc0 = d0;
   float zc[3];
 #pragma unroll
   for (int kk = 0; kk < 3; ++kk)
     zc[kk] = fma_rn(cof[2][kk], z[2], fma_rn(cof[0][kk], z[0], cof[1][kk] * z[1])) * inv_det;
-  const Plane zp = anchored(zc[0], zc[1], zc[2], true, z_ndc0);
+  const Plane zh = anchored(zc[0], zc[1], zc[2], true, z_ndc0);
+  Plane zp = zh;
+  if (use_screen) {
+    const float ex1 = px[1] - px[0], ey1 = py[1] - py[0];
+    const float ex2 = px[2] - px[0], ey2 = py[2] - py[0];
+    const float ez1 = d1 - z_ndc0, ez2 = d2 - z_ndc0;
+    float sarea = fma_rn(ex1, ey2, -(ex2 * ey1));
+    if (sarea == 0.0f) sarea = 1.0f;  // culled: any finite plane
+    const float sa = fma_rn(ez1, ey2, -(ez2 * ey1)) / sarea;
+    const float sb = fma_rn(ex1, ez2, -(ex2 * ez1)) / sarea;
+    zp = Plane{sa, sb, fma_rn(sb, dy0, fma_rn(sa, dx0, z_ndc0))};
+  }
   const Plane wp = anchored(cof[0][0] + cof[1][0] + cof[2][0], cof[0][1] + cof[1][1] + cof[2][1],
                             cof[0][2] + cof[1][2] + cof[2][2], true, det_w0);
 
@@ -200,10 +216,10 @@ __global__ void setup_kernel(const float* __restrict__ tc, const float4* __restr
   const float werr = (fma_rn(fabsf(wp.a), bw_f, fabsf(wp.b) * bh_f) + fabsf(wp.c)) * tol;
   const float wmax = tmax(tmax(w[0], w[1]), w[2]);
   const float wr_min = det / tmax(wmax, kEps12);
-  const float d0 = z[0] / safe_w[0], d1 = z[1] / safe_w[1], d2 = z[2] / safe_w[2];
   const float dmin = tmin(tmin(d0, d1), d2);
   const float dmax = tmax(tmax(d0, d1), d2);
-  const float derr = (fma_rn(fabsf(zp.a), bw_f, fabsf(zp.b) * bh_f) + fabsf(zp.c)) * tol;
+  // the homogeneous coefficients, as in the plain version (its comment)
+  const float derr = (fma_rn(fabsf(zh.a), bw_f, fabsf(zh.b) * bh_f) + fabsf(zh.c)) * tol;
   const bool safe = valid && !any_behind && (wr_min > werr) && (dmin > derr) &&
                     (dmax < 1.0f - derr);
 

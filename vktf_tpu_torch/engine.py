@@ -2,9 +2,9 @@
 
 Counterpart of ``vktf_tpu/engine.py`` (reference: src/engine/engine.cppm):
   * ``Engine(window, config, log, device, mesh)`` picks the device: the
-    best ranked CUDA card unless the caller asks for another
-    (``device="cpu"`` runs the kernels' plain versions); with no card and
-    no device it raises. It logs the card and the kernels' build directory.
+    current CUDA card unless the caller asks for another (``device="cpu"``
+    runs the kernels' plain versions); with no card and no device it
+    raises. It logs the card and the kernels' build directory.
     With a mesh (``parallel.make_render_mesh``) the device is this rank's
     card (the launcher sets it) and the scenes it loads render through the
     multi-device program (``Scene(mesh=)``), every rank rendering each
@@ -66,14 +66,13 @@ class Engine:
         self.window = window
         self.mesh = mesh
         self.config = config or RenderConfig(width=window.width, height=window.height)
-        if device is None and mesh is not None and torch.cuda.is_available():
-            device = torch.device("cuda", torch.cuda.current_device())
         if device is None:
-            ranked = rank_devices()
-            if not ranked:
+            # the current card, as the JAX engine takes its default device
+            # (under a mesh the launcher has made this rank's card current)
+            if not torch.cuda.is_available():
                 raise RuntimeError("Engine: no CUDA device; pass device=\"cpu\" to render "
                                    "with the plain PyTorch versions on the CPU")
-            device = ranked[0]
+            device = torch.device("cuda", torch.cuda.current_device())
         self.device = torch.device(device)
         if self.device.type == "cuda":
             index = (self.device.index if self.device.index is not None

@@ -184,10 +184,8 @@ def start(
         frame = np.moveaxis(scene.render_still(), 0, -1)
         if not leader:
             return
-        rgba = np.concatenate([frame, np.full(frame.shape[:2] + (1,), 255, np.uint8)],
-                              axis=-1)
         out_dir = Path(frame_dir) if frame_dir else Path.cwd()
-        path = write_png(out_dir / f"still_{still_count[0]:05d}.png", rgba)
+        path = write_png(out_dir / f"still_{still_count[0]:05d}.png", frame)  # RGB
         still_count[0] += 1
         engine.log.info(f"Saved exact still to {path}")
 

@@ -15,6 +15,11 @@ def quat_normalize(q):
     return q / np.linalg.norm(q, axis=-1, keepdims=True)
 
 
+def quat_conjugate(q):
+    q = np.asarray(q)
+    return q * np.asarray([1.0, -1.0, -1.0, -1.0], dtype=q.dtype)
+
+
 def quat_multiply(a, b):
     """Hamilton product a*b (apply b's rotation first, then a's)."""
     a, b = np.asarray(a), np.asarray(b)

@@ -140,6 +140,30 @@ def library(source: str) -> ctypes.CDLL:
     return lib
 
 
+def on_device(device):
+    """A context in which `device` is the current device when it is a
+    card (a null context otherwise). A kernel launch goes to the current
+    device, and fails on a stream of another card; a CUDA event records on
+    the current device's stream."""
+    import contextlib
+
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda" or device.index in (None, torch.cuda.current_device()):
+        return contextlib.nullcontext()  # already current: nothing to switch
+    return torch.cuda.device(device)
+
+
+def launch(kernel: Kernel, entry: str, args, what: str, device) -> None:
+    """Count and launch one kernel through its C entry point, with its
+    operands' card current."""
+    kernel.launches += 1
+    with on_device(device):
+        status = getattr(library(kernel.source), entry)(*args)
+    check(status, what)
+
+
 def check(status: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if status != 0:

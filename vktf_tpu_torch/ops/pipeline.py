@@ -73,7 +73,7 @@ import numpy as np
 import torch
 
 from vktf_tpu_torch.config import PEEL_LAYERS_MAX, SAMPLE_OFFSETS, RenderConfig
-from vktf_tpu_torch.ops import present, raster, setup_kernel, shade_kernel, shade_table
+from vktf_tpu_torch.ops import _cuda, present, raster, setup_kernel, shade_kernel, shade_table
 from vktf_tpu_torch.ops.fmath import f32, fma
 from vktf_tpu_torch.ops.vertex import propagate_transforms
 from vktf_tpu_torch.scene.flatten import RenderScene, SceneMeta
@@ -317,6 +317,12 @@ class FrameProgram:
 
     def __call__(self, scene: RenderScene, view_projection,
                  camera_position) -> torch.Tensor:
+        # the scene's card is current for the whole frame: its launches and
+        # its stage events go there whichever device the caller had current
+        with _cuda.on_device(scene.device):
+            return self._frame(scene, view_projection, camera_position)
+
+    def _frame(self, scene: RenderScene, view_projection, camera_position) -> torch.Tensor:
         cfg = self.config
         dev = scene.device
         # one staged copy: vp (4, 4) and the camera position behind it

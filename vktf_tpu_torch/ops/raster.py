@@ -304,14 +304,12 @@ def rasterize(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
     depth = torch.empty(shape, dtype=torch.float32, device=dev)
     offsets = (ctypes.c_float * (2 * s_count))(
         *[c for xy in SAMPLE_OFFSETS[msaa_samples] for c in xy])
-    lib = _cuda.library(KERNEL.source)
     operands = (_cuda.ptr(tri_data), _cuda.ptr(tri_bbox), _cuda.ptr(chunk_bbox), _cuda.ptr(ids),
                 _cuda.ptr(depth), n_chunks, height, width, s_count, layers)
     tail = (ctypes.cast(offsets, ctypes.c_void_p), _cuda.stream_of(tri_data))
-    (KERNEL if layers == 1 else KERNEL_LAYERS).launches += 1
     # the whole frame through vktf_raster, the entry earlier sources have too
     # (kernel_ab.py times them against these); a band through vktf_raster_band
-    status = (lib.vktf_raster(*operands, *tail) if y_offset == 0
-              else lib.vktf_raster_band(*operands, y_offset, *tail))
-    _cuda.check(status, "raster kernel")
+    entry, args = (("vktf_raster", (*operands, *tail)) if y_offset == 0
+                   else ("vktf_raster_band", (*operands, y_offset, *tail)))
+    _cuda.launch(KERNEL if layers == 1 else KERNEL_LAYERS, entry, args, "raster kernel", dev)
     return ids, depth

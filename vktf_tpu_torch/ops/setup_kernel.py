@@ -27,9 +27,10 @@ inputs and outputs, so every load and store of a warp is one coalesced
 128-byte line; each thread reads its instance's matrix as three 16-byte
 loads from the (I, 16) rows (a few KB, cached, and mostly one instance per
 warp). Bound on the card: bytes — 36 bytes of corners and a 4-byte index
-read, 157 bytes written per triangle, against ~700 flops and 29 IEEE
+read, 157 bytes written per triangle, against ~720 flops and 30 IEEE
 divisions, 18 of them in the near-plane clip, which only a triangle with a
-corner behind the eye reads and the others skip. The wrapper does no work
+corner behind the eye reads and the others skip, and 2 in the
+screen-space depth slopes (``ops/vertex.py``), which those triangles skip. The wrapper does no work
 beyond its checks, the output allocations and the launch: ``ids=None``
 launches with a null pointer and the kernel writes the triangle's own
 index, and ``valid`` is a bool view of the kernel's byte output. Times
@@ -140,11 +141,10 @@ def setup_pack(tri_corner, inst_rows, tri_instance, view_projection, width: int,
     anchor2 = torch.empty((2, t), dtype=torch.float32, device=dev)
     valid = torch.empty((t,), dtype=torch.uint8, device=dev)
     if t:
-        KERNEL.launches += 1
-        _cuda.check(_cuda.library(KERNEL.source).vktf_setup_pack(
+        _cuda.launch(KERNEL, "vktf_setup_pack", (
             _cuda.ptr(tri_corner), _cuda.ptr(inst_rows), _cuda.ptr(tri_instance),
             _cuda.ptr(view_projection), None if ids is None else _cuda.ptr(ids),
             _cuda.ptr(tri_data), _cuda.ptr(bbox_rows), _cuda.ptr(edge9), _cuda.ptr(anchor2),
-            _cuda.ptr(valid), t, width, height, _cuda.stream_of(tri_corner)), "setup kernel")
+            _cuda.ptr(valid), t, width, height, _cuda.stream_of(tri_corner)), "setup kernel", dev)
     return dict(tri_data=tri_data, bbox_rows=bbox_rows, edge9=edge9,
                 anchor2=anchor2, valid=valid.view(torch.bool))

@@ -705,12 +705,6 @@ def _params(camera_position, lights, background, dev):
     return params
 
 
-def _launch(kernel, entry: str, args, what: str) -> None:
-    """Count and launch one kernel through its C entry point."""
-    kernel.launches += 1
-    _cuda.check(getattr(_cuda.library(kernel.source), entry)(*args), what)
-
-
 def _aniso_args(max_anisotropy: float):
     return float(max_anisotropy), float(np.float32(max_anisotropy * max_anisotropy))
 
@@ -738,12 +732,12 @@ def shade_resolve(tri, sx, sy, frac, table, pool, camera_position, lights,
     params = _params(camera_position, lights, background, dev)
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        _launch(_COLS_KERNELS[(texels, taps > 1)][0], "vktf_shade_resolve",
+        _cuda.launch(_COLS_KERNELS[(texels, taps > 1)][0], "vktf_shade_resolve",
                 (TEXELS.index(texels), taps, _cuda.ptr(tri), _cuda.ptr(sx), _cuda.ptr(sy),
                  _cuda.ptr(frac), _cuda.ptr(table), _cuda.ptr(pool), _cuda.ptr(params),
                  _cuda.ptr(out), n, lights.shape[0], pool.shape[0],
                  *_aniso_args(max_anisotropy), _cuda.stream_of(tri)),
-                "shade kernel")
+                "shade kernel", tri.device)
     return out
 
 
@@ -768,12 +762,12 @@ def shade_layer(tri, sx, sy, table, pool, camera_position, lights,
     rgb = torch.empty((layers, 3, n), dtype=torch.float32, device=dev)
     alpha = torch.empty(tri.shape, dtype=torch.float32, device=dev)
     if n:
-        _launch(_COLS_KERNELS[(texels, taps > 1)][1], "vktf_shade_layer",
+        _cuda.launch(_COLS_KERNELS[(texels, taps > 1)][1], "vktf_shade_layer",
                 (TEXELS.index(texels), taps, _cuda.ptr(tri), _cuda.ptr(sx), _cuda.ptr(sy),
                  _cuda.ptr(table), _cuda.ptr(pool), _cuda.ptr(params), _cuda.ptr(rgb),
                  _cuda.ptr(alpha), n, layers, lights.shape[0], pool.shape[0],
                  *_aniso_args(max_anisotropy), _cuda.stream_of(tri)),
-                "shade layer kernel")
+                "shade layer kernel", tri.device)
     return rgb, alpha
 
 
@@ -795,11 +789,11 @@ def shade_attrs_resolve(attrs, r0, r1, tri, frac, pool, camera_position, lights,
     params = _params(camera_position, lights, background, dev)
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
-        _launch(KERNEL_ATTRS, "vktf_shade_attrs_resolve",
+        _cuda.launch(KERNEL_ATTRS, "vktf_shade_attrs_resolve",
                 (_cuda.ptr(attrs), _cuda.ptr(r0), _cuda.ptr(r1), _cuda.ptr(tri),
                  _cuda.ptr(frac), _cuda.ptr(pool), _cuda.ptr(params), _cuda.ptr(out), n,
                  lights.shape[0], pool.shape[0], _cuda.stream_of(tri)),
-                "shade attrs kernel")
+                "shade attrs kernel", tri.device)
     return out
 
 
@@ -819,9 +813,9 @@ def shade_attrs_layer(attrs, r0, r1, tri, pool, camera_position, lights):
     rgb = torch.empty((layers, 3, n), dtype=torch.float32, device=dev)
     alpha = torch.empty(tri.shape, dtype=torch.float32, device=dev)
     if n:
-        _launch(KERNEL_ATTRS_LAYER, "vktf_shade_attrs_layer",
+        _cuda.launch(KERNEL_ATTRS_LAYER, "vktf_shade_attrs_layer",
                 (_cuda.ptr(attrs), _cuda.ptr(r0), _cuda.ptr(r1), _cuda.ptr(tri),
                  _cuda.ptr(pool), _cuda.ptr(params), _cuda.ptr(rgb), _cuda.ptr(alpha), n,
                  layers, lights.shape[0], pool.shape[0], _cuda.stream_of(tri)),
-                "shade attrs layer kernel")
+                "shade attrs layer kernel", tri.device)
     return rgb, alpha

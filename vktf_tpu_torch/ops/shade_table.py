@@ -99,9 +99,8 @@ def build_shade_table(edge9, tri_corner, static_cols, anchor2, inst_rows, tri_in
     _cuda.require(tri_instance, "tri_instance", torch.int32, (t,), dev)
     table = torch.empty((t, ROW), dtype=torch.float32, device=dev)
     if t:
-        KERNEL.launches += 1
-        _cuda.check(_cuda.library(KERNEL.source).vktf_shade_table(
+        _cuda.launch(KERNEL, "vktf_shade_table", (
             _cuda.ptr(edge9), _cuda.ptr(tri_corner), _cuda.ptr(static_cols),
             _cuda.ptr(anchor2), _cuda.ptr(inst_rows), _cuda.ptr(tri_instance),
-            _cuda.ptr(table), t, _cuda.stream_of(edge9)), "shade-table kernel")
+            _cuda.ptr(table), t, _cuda.stream_of(edge9)), "shade-table kernel", dev)
     return table

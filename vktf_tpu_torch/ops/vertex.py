@@ -6,7 +6,11 @@ math of ``_setup_from_corners(flat_out=True)`` (2D-homogeneous, Olano-Greer
 edge functions anchored at the clipped bbox corner, screen-space coverage
 planes for sane projections, near-plane-clipped conservative bboxes, the
 slim-body safety proof), written with the fused multiply-adds XLA forms
-(``ops/fmath.py``); ``csrc/setup.cu`` is the same sequence per thread.
+(``ops/fmath.py``); ``csrc/setup.cu`` is the same sequence per thread. One
+deliberate difference: on the screen-space path the depth plane comes from
+the corners' NDC depths over their screen positions, not from the JAX
+package's cofactor sums, which cancel (its depth is off float64 by up to
+~1e-3, this one by ~1e-7: tests/test_torch_setup.py).
 """
 
 from __future__ import annotations
@@ -206,12 +210,31 @@ def setup_from_corners(x, y, z, w, width: int, height: int) -> dict:
         for se, ce in zip(sedges, edges)
     )
 
-    z_ndc0 = z[0] / safe_w[0]
+    dverts = [z[i] / safe_w[i] for i in range(3)]
+    z_ndc0 = dverts[0]
 
     def zcoef(k):
         return fma(cof2[k], z[2], fma(cof0[k], z[0], cof1[k] * z[1])) * inv_det
 
-    zplane = anchored(zcoef(0), zcoef(1), zcoef(2), z_ndc0)
+    # homogeneous depth plane (the JAX package's): its slopes are sums of
+    # cofactor x clip z that cancel by ~1e5, since clip z is w less a
+    # near-constant, so a covered sample's depth can be off by ~1e-3
+    zplane_h = anchored(zcoef(0), zcoef(1), zcoef(2), z_ndc0)
+    # on the screen-space path (no corner behind the eye, sane positions)
+    # NDC depth is affine in the screen positions: solve its slopes from
+    # the corners' NDC-z differences, whose error scales with the
+    # triangle's own depth range. Near-plane crossers and insane
+    # projections keep the homogeneous plane (their corners do not
+    # usefully project).
+    ex1, ey1 = px[1] - px[0], py[1] - py[0]
+    ex2, ey2 = px[2] - px[0], py[2] - py[0]
+    ez1, ez2 = dverts[1] - z_ndc0, dverts[2] - z_ndc0
+    sarea = fma(ex1, ey2, -(ex2 * ey1))
+    sarea = torch.where(sarea == c0, c1, sarea)  # culled: any finite plane
+    sa = fma(ez1, ey2, -(ez2 * ey1)) / sarea
+    sb = fma(ex1, ez2, -(ex2 * ez1)) / sarea
+    zplane_s = (sa, sb, fma(sb, dy0, fma(sa, dx0, z_ndc0)))
+    zplane = tuple(torch.where(use_screen, s, h) for s, h in zip(zplane_s, zplane_h))
     wplane = anchored(cof0[0] + cof1[0] + cof2[0], cof0[1] + cof1[1] + cof2[1],
                       cof0[2] + cof1[2] + cof2[2], det_w0)
 
@@ -224,16 +247,20 @@ def setup_from_corners(x, y, z, w, width: int, height: int) -> dict:
             + wplane[2].abs()) * tol
     wmax = torch.maximum(torch.maximum(w[0], w[1]), w[2])
     wr_min = det / torch.maximum(wmax, eps12)
-    dverts = [z[i] / safe_w[i] for i in range(3)]
     dmin = torch.minimum(torch.minimum(dverts[0], dverts[1]), dverts[2])
     dmax = torch.maximum(torch.maximum(dverts[0], dverts[1]), dverts[2])
-    derr = (fma(zplane[0].abs(), bw_f, zplane[1].abs() * bh_f)
-            + zplane[2].abs()) * tol
+    # the margin takes the homogeneous coefficients, as the JAX package
+    # does, so the flag stays bit-equal to it: it only needs magnitudes
+    # that bound the evaluation's rounding, |c| (the depth at the anchor)
+    # dominates it, and both planes' |c| agree far inside the 2^8 headroom
+    derr = (fma(zplane_h[0].abs(), bw_f, zplane_h[1].abs() * bh_f)
+            + zplane_h[2].abs()) * tol
     safe = (valid & ~any_behind & (wr_min > werr) & (dmin > derr)
             & (dmax < one - derr))
 
     return {
         "safe": safe,
+        "use_screen": use_screen,
         "edges": edges,
         "edges_raster": edges_raster,
         "zplane": zplane,

@@ -335,7 +335,7 @@ class ShardedFrameProgram(FrameProgram):
             self._background = to_device(self.config.clear_color[:3], dev)
         return self._shard_consts
 
-    def __call__(self, scene: RenderScene, view_projection, camera_position) -> torch.Tensor:
+    def _frame(self, scene: RenderScene, view_projection, camera_position) -> torch.Tensor:
         cfg, mesh = self.config, self.mesh
         dev = scene.device
         ids_micro, pad, sx, sy, px = self._consts(dev)

@@ -159,6 +159,13 @@ def flatten_assets_numpy(assets: Sequence[Asset], log: Optional[Log] = None,
     """Combine assets into the frame path's leaves as numpy arrays (the JAX
     package's dtypes and values) plus the static SceneMeta. ``decoded`` is
     ``decode_textures``' result for these assets (decoded here when None)."""
+    leaves, meta, _entries = _flatten(assets, log, decoded)
+    return leaves, meta
+
+
+def _flatten(assets, log, decoded):
+    """(leaves, meta, texture entries): flatten_assets_numpy's result and
+    the (TextureData, sampler dict) of each texture slot the pool holds."""
     log = log or default_log()
     order: list[tuple[Asset, int, int, int]] = []
     for asset in assets:
@@ -418,7 +425,7 @@ def flatten_assets_numpy(assets: Sequence[Asset], log: Optional[Log] = None,
         mixed_samplers=material_pool.mixed,
         mirror_wrap=material_pool.mirror,
     )
-    return leaves, meta
+    return leaves, meta, texture_entries
 
 
 _INDEX_LEAVES = ("node_parent", "inst_node", "tri_instance", "light_node",
@@ -446,8 +453,17 @@ def scene_from_numpy(leaves: dict, device) -> RenderScene:
     return RenderScene(**out)
 
 
-def flatten_assets(assets: Sequence[Asset], device,
-                   log: Optional[Log] = None) -> Tuple[RenderScene, SceneMeta]:
-    """Combine assets into one RenderScene on `device`."""
-    leaves, meta = flatten_assets_numpy(assets, log)
-    return scene_from_numpy(leaves, device), meta
+def flatten_assets(assets: Sequence[Asset], log: Optional[Log] = None, *,
+                   device=None) -> Tuple[RenderScene, SceneMeta, dict]:
+    """Combine assets into one RenderScene on `device` (the current card by
+    default, ``scene.resolve_device``) as ``vktf_tpu``'s flatten_assets:
+    returns (scene, meta, aux), aux["texture_entries"] the (TextureData,
+    sampler dict) of every texture slot, which the numpy reference
+    renderer reads."""
+    from vktf_tpu_torch.scene.scene import resolve_device
+
+    if log is not None and not isinstance(log, Log):
+        raise TypeError(f"flatten_assets(assets, log=None, *, device=None) takes a Log "
+                        f"as its second argument, got {log!r}: pass the device by name")
+    leaves, meta, entries = _flatten(assets, log, None)
+    return scene_from_numpy(leaves, resolve_device(device)), meta, {"texture_entries": entries}

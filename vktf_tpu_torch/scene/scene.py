@@ -46,7 +46,7 @@ class Scene:
         this rank's card under a mesh). mesh: a ``parallel.RenderMesh``, or
         None for one device."""
         log = log or default_log()
-        render_scene, meta = flatten_assets(assets, resolve_device(device), log)
+        render_scene, meta, _aux = flatten_assets(assets, log, device=resolve_device(device))
         self._init(render_scene, meta, config, camera, log, mesh)
 
     @classmethod

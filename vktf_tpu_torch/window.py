@@ -203,16 +203,17 @@ def _png_chunk(kind: bytes, payload: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
 
 
-def write_png(path, rgba: np.ndarray) -> Path:
-    """Write an (H, W, 4) uint8 image as an 8-bit RGBA PNG (no filtering,
-    one zlib stream)."""
-    rgba = np.ascontiguousarray(rgba, np.uint8)
-    if rgba.ndim != 3 or rgba.shape[2] != 4:
-        raise ValueError(f"write_png takes an (H, W, 4) uint8 image, got {rgba.shape}")
-    height, width = rgba.shape[:2]
-    rows = np.zeros((height, 1 + 4 * width), np.uint8)  # filter byte 0 per row
-    rows[:, 1:] = rgba.reshape(height, 4 * width)
-    header = struct.pack(">IIBBBBB", width, height, 8, 6, 0, 0, 0)
+def write_png(path, image: np.ndarray) -> Path:
+    """Write an (H, W, 3) or (H, W, 4) uint8 image as an 8-bit RGB (colour
+    type 2) or RGBA (colour type 6) PNG (no filtering, one zlib stream)."""
+    image = np.ascontiguousarray(image, np.uint8)
+    if image.ndim != 3 or image.shape[2] not in (3, 4):
+        raise ValueError(f"write_png takes an (H, W, 3|4) uint8 image, got {image.shape}")
+    height, width, channels = image.shape
+    rows = np.zeros((height, 1 + channels * width), np.uint8)  # filter byte 0 per row
+    rows[:, 1:] = image.reshape(height, channels * width)
+    colour_type = 2 if channels == 3 else 6
+    header = struct.pack(">IIBBBBB", width, height, 8, colour_type, 0, 0, 0)
     path = Path(path)
     path.write_bytes(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
                      + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
