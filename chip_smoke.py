@@ -9,11 +9,14 @@
 Needs one CUDA card and nvcc. In order, it:
   1. reports the card (nvidia-smi name and power limit);
   2. builds the CUDA sources of vktf_tpu_torch/csrc (one nvcc each, in
-     parallel; eighteen kernel records) and times the build;
+     parallel; eighteen kernel records) and times the build; builds the
+     native host runtime (csrc/host/vktf_native.cpp, g++) and requires it
+     to load;
   3. builds the sponza preset with the port's numpy builder and uploads it;
      exports it (RGBA8 KTX2 under ZLIB, lossless) and the box preset
      (Basis ETC1S) to glTF files under vktf_tpu_torch/_build/assets/ for
-     phase 10;
+     phase 10, and the sponza at the exporter's defaults (RGBA8 KTX2 under
+     ZSTD, through libzstd with zstandard hidden) for phase 16;
   4. the opaque path (K = 1): renders frames through the port's Scene
      (render_async / render_still) with every kernel launch counter set to
      0 just before and read just after, printing per-stage CUDA-event
@@ -115,7 +118,19 @@ Needs one CUDA card and nvcc. In order, it:
      torch.cuda.set_device(1): each frame equal to card 0's bit for bit)
      runs with --four-cards; a one-card run says on an early line that it
      did not run;
- 16. checks the frames (shape, dtype, the share of pixels lit: 50% for
+ 16. the native host runtime and the numpy oracle: Engine.load of the
+     ZSTD sponza with zstandard hidden (the load split), its 1080p 4x frame
+     through the K = 1 kernels equal to phase 4's bit for bit; host
+     timings, native against numpy (VKTF_NATIVE=0), each pair bit-equal:
+     one 2048x2048 sRGB texture's ZSTD decode, mips and pool pack, and the
+     sponza's ZLIB files through Engine.load, printed beside the host CPU
+     and the card; tests/test_alpha.py's five fixtures (the opaque and the
+     BLEND quad over the box at 1x and 4x, the three-deep stack; written
+     with the port's writer) rendered at 96x64 by the kernels, every sample
+     shaded, each a path with the counters zeroed and read, held to the
+     port's numpy oracle (ops/reference.py) within
+     tests/helpers.assert_images_close's default budget;
+ 17. checks the frames (shape, dtype, the share of pixels lit: 50% for
      sponza paths, 5% for the single-object presets), saves them as .npy in
      the build directory (vktf_tpu_torch/_build/, not committed), and prints
      the kernels line, the card line and, last, {"ok": true, "device": {...}}.
@@ -129,7 +144,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import importlib.util
 import json
+import os
 import shutil
 import struct
 import subprocess
@@ -196,6 +214,14 @@ SHADE_OPS_PER_LIGHT = 120
 # (depth_plane_bound) in place of the second term.
 DEPTH_F64_ABS, DEPTH_F64_REL = 2.0 ** -20, 2.0 ** -16
 DEPTH_PLANE_ROUNDINGS = 128
+
+# the oracle's budget: tests/helpers.py assert_images_close's defaults
+ORACLE_MAX_MEAN = 2.0        # mean |diff| over the RGB values
+ORACLE_MAX_OUTLIERS = 0.015  # share of pixels with a channel more than ...
+ORACLE_OUTLIER_STEP = 8      # ... this many u8 steps apart
+ORACLE_SIZE = (96, 64)
+ORACLE_CAMERA = ((0.0, 0.6, 2.2), (0.0, -0.2, -1.0))
+HOST_TEXTURE = 2048  # the side of the host timings' sRGB texture
 
 
 def log(*parts) -> None:
@@ -825,6 +851,284 @@ def viewer_phase(dev, config, camera, meta, still, sponza_files, box_files, asse
     log(f"[viewer] phase time: {time.perf_counter() - t_phase:.1f} s")
 
 
+@contextlib.contextmanager
+def without_zstandard():
+    """The zstandard module hidden from import, so ZSTD runs through the
+    native runtime's libzstd."""
+    saved = sys.modules.get("zstandard")
+    sys.modules["zstandard"] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            sys.modules.pop("zstandard", None)
+        else:
+            sys.modules["zstandard"] = saved
+
+
+@contextlib.contextmanager
+def native_runtime(on: bool):
+    """VKTF_NATIVE as asked: off, every host loop takes its numpy version."""
+    saved = os.environ.get("VKTF_NATIVE")
+    os.environ["VKTF_NATIVE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("VKTF_NATIVE")
+        else:
+            os.environ["VKTF_NATIVE"] = saved
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it, and the cores this process sees."""
+    model = "not reported"
+    try:
+        with open("/proc/cpuinfo") as cpuinfo:
+            model = next((line.split(":", 1)[1].strip() for line in cpuinfo
+                          if line.startswith("model name")), model)
+    except OSError:
+        pass
+    return f"{model} ({os.cpu_count()} cores visible)"
+
+
+def quad_over_box(directory, front: dict, name: str):
+    """tests/test_alpha.py's fixture, written with the port's writer: an
+    alpha-tested or blended quad floating in front of an opaque box."""
+    from vktf_tpu_torch.models.gltf_writer import GltfWriter
+    from vktf_tpu_torch.models.primitives import box_mesh, plane_mesh
+
+    w = GltfWriter()
+    back = w.add_material(base_color_factor=(0.15, 0.6, 0.2, 1.0), metallic_factor=0.0,
+                          roughness_factor=0.8)
+    front_material = w.add_material(**front)
+    mbox = w.add_mesh(box_mesh(0.6), material=back)
+    mquad = w.add_mesh(plane_mesh(0.9), material=front_material)
+    light = w.add_light("point", color=(6.0, 6.0, 6.0))
+    sun = w.add_light("directional", color=(0.6, 0.6, 0.6))
+    w.add_scene([
+        w.add_node(mesh=mbox, translation=(0.0, 0.3, -0.6)),
+        w.add_node(mesh=mquad, translation=(0.1, 0.35, 0.45),
+                   rotation=(0.7071068, 0.0, 0.0, 0.7071068)),
+        w.add_node(light=light, translation=(1.2, 1.5, 2.0)),
+        w.add_node(light=sun, rotation=(0.2, 0.1, 0.0, 0.97)),
+    ])
+    return w.write(directory / name)
+
+
+def stacked_blend_scene(directory, name: str = "stack.gltf", n_quads: int = 3,
+                        dz: float = 0.2):
+    """tests/test_alpha.py's stack of BLEND quads in front of an opaque box,
+    written with the port's writer."""
+    from vktf_tpu_torch.models.gltf_writer import GltfWriter
+    from vktf_tpu_torch.models.primitives import box_mesh, plane_mesh
+
+    w = GltfWriter()
+    back = w.add_material(base_color_factor=(0.15, 0.6, 0.2, 1.0), metallic_factor=0.0,
+                          roughness_factor=0.8)
+    colors = ((0.9, 0.2, 0.2, 0.45), (0.2, 0.3, 0.9, 0.5), (0.9, 0.8, 0.2, 0.4),
+              (0.2, 0.9, 0.6, 0.5), (0.7, 0.2, 0.9, 0.45), (0.9, 0.5, 0.2, 0.5),
+              (0.3, 0.8, 0.9, 0.4), (0.8, 0.3, 0.5, 0.5), (0.4, 0.6, 0.3, 0.45))
+    quads = [w.add_material(base_color_factor=c, metallic_factor=0.0, roughness_factor=0.5,
+                            alpha_mode="BLEND") for c in colors[:n_quads]]
+    mbox = w.add_mesh(box_mesh(0.6), material=back)
+    meshes = [w.add_mesh(plane_mesh(0.9), material=m) for m in quads]
+    light = w.add_light("point", color=(6.0, 6.0, 6.0))
+    sun = w.add_light("directional", color=(0.6, 0.6, 0.6))
+    nodes = [
+        w.add_node(mesh=mbox, translation=(0.0, 0.3, -0.6)),
+        w.add_node(light=light, translation=(1.2, 1.5, 2.0)),
+        w.add_node(light=sun, rotation=(0.2, 0.1, 0.0, 0.97)),
+    ]
+    for i, mq in enumerate(meshes):
+        nodes.append(w.add_node(mesh=mq, translation=(0.1 - 0.05 * i, 0.35, 0.45 - dz * i),
+                                rotation=(0.7071068, 0.0, 0.0, 0.7071068)))
+    w.add_scene(nodes)
+    return w.write(directory / name)
+
+
+# (tag, fixture, MSAA samples): tests/test_alpha.py's five frames
+OPAQUE_FRONT = dict(base_color_factor=(0.9, 0.25, 0.2, 1.0), metallic_factor=0.0,
+                    roughness_factor=0.5)
+BLEND_FRONT = dict(base_color_factor=(0.9, 0.25, 0.2, 0.45), metallic_factor=0.0,
+                   roughness_factor=0.5, alpha_mode="BLEND")
+ORACLE_FIXTURES = (
+    ("opaque_1x", lambda d: quad_over_box(d, OPAQUE_FRONT, "opaque.gltf"), 1),
+    ("opaque_4x", lambda d: quad_over_box(d, OPAQUE_FRONT, "opaque.gltf"), 4),
+    ("blend_1x", lambda d: quad_over_box(d, BLEND_FRONT, "blend.gltf"), 1),
+    ("blend_4x", lambda d: quad_over_box(d, BLEND_FRONT, "blend.gltf"), 4),
+    ("stack_1x", stacked_blend_scene, 1),
+)
+
+
+def image_difference(produced: np.ndarray, expected: np.ndarray) -> tuple[float, float]:
+    """(mean |diff| of the RGB values, share of pixels with a channel more
+    than ORACLE_OUTLIER_STEP apart) of two (H, W, >= 3) u8 images, as
+    tests/helpers.assert_images_close measures them."""
+    diff = np.abs(produced[..., :3].astype(np.int32) - expected[..., :3].astype(np.int32))
+    return float(diff.mean()), float((diff.max(axis=-1) > ORACLE_OUTLIER_STEP).mean())
+
+
+def oracle_fixtures(dev, kernels, directory) -> None:
+    """tests/test_alpha.py's five fixtures rendered on the card by the
+    hand-written kernels (every sample shaded, as the oracle does), each a
+    path with the counters zeroed and read, against the port's numpy
+    oracle within assert_images_close's default budget."""
+    from vktf_tpu_torch.config import SAMPLE_OFFSETS, RenderConfig
+    from vktf_tpu_torch.loaders.gltf import load_gltf
+    from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
+    from vktf_tpu_torch.ops.reference import reference_scene, render_reference
+    from vktf_tpu_torch.scene.scene import Scene
+
+    width, height = ORACLE_SIZE
+    camera = Camera(*ORACLE_CAMERA, ViewFrustumParams(np.radians(45.0), width / height,
+                                                      0.1, 100.0))
+    directory.mkdir(parents=True, exist_ok=True)
+    for tag, fixture, msaa in ORACLE_FIXTURES:
+        path = fixture(directory)
+        config = RenderConfig(width=width, height=height, msaa_samples=msaa,
+                              shading_rate="sample")
+        scene = Scene([load_gltf(path)], config, camera=camera, device=dev)
+        for k in kernels:
+            k.launches = 0
+        produced = np.moveaxis(scene.render_still(), 0, -1)
+        launches = {k.name: k.launches for k in kernels if k.launches}
+        t0 = time.perf_counter()
+        ref = reference_scene([load_gltf(path)])
+        expected = render_reference(ref, camera.view_projection_transform, camera.position,
+                                    width, height, SAMPLE_OFFSETS[msaa],
+                                    max_anisotropy=config.max_anisotropy,
+                                    peel_layers=max(ref.meta.peel_layers, 2))
+        oracle_s = time.perf_counter() - t0
+        mean, outliers = image_difference(produced, expected)
+        lit = float((expected[..., :3].max(axis=-1) > 0).mean())
+        log(f"[oracle] {tag}: K = {scene.frame_program.layers}, {width}x{height} {msaa}x, "
+            f"every sample shaded; launches {json.dumps(launches)}; against the numpy oracle "
+            f"({oracle_s:.1f} s on the host): mean |diff| {mean:.4f}, pixels more than "
+            f"{ORACLE_OUTLIER_STEP} steps apart {outliers:.4f} (budget: mean <= "
+            f"{ORACLE_MAX_MEAN}, share <= {ORACLE_MAX_OUTLIERS}); oracle lit {lit:.3f}")
+        require(lit > 0.2, f"oracle {tag}: the fixture is in view")
+        setup, raster_1, table, shade_1, raster_k, *shade_others = kernels
+        require(all(launches.get(k.name) for k in (setup, table))
+                and any(launches.get(k.name) for k in (raster_1, raster_k))
+                and any(launches.get(k.name) for k in (shade_1, *shade_others)),
+                f"oracle {tag}: setup, a raster, shade table and a shade record ran on the card")
+        require(mean <= ORACLE_MAX_MEAN and outliers <= ORACLE_MAX_OUTLIERS,
+                f"oracle {tag}: the card's frame within the oracle's budget")
+
+
+def host_timings(sponza_zlib_files, meta, viewer_log, dev, card) -> None:
+    """One HOST_TEXTURE-square sRGB texture through decode (a ZSTD KTX2
+    level), mips and pool pack, and the sponza's ZLIB files through
+    Engine.load, with the native runtime and with numpy (VKTF_NATIVE=0):
+    host seconds, each pair's outputs equal bit for bit."""
+    from vktf_tpu_torch import engine as engine_mod
+    from vktf_tpu_torch import native
+    from vktf_tpu_torch.loaders import images
+    from vktf_tpu_torch.loaders.ktx import SUPERCOMPRESSION_ZSTD, encode_ktx2, parse_ktx2
+    from vktf_tpu_torch.ops.texture_pack import build_material_pool
+    from vktf_tpu_torch.window import Window
+
+    rng = np.random.default_rng(12)
+    side = HOST_TEXTURE
+    yy, xx = np.mgrid[0:side, 0:side]
+    base = np.stack([(xx * 255) // side, (yy * 255) // side, ((xx ^ yy) & 255),
+                     np.full_like(xx, 255)], axis=-1).astype(np.int32)
+    base = np.clip(base + rng.integers(-6, 7, base.shape), 0, 255).astype(np.uint8)
+    blob = encode_ktx2([base], True, SUPERCOMPRESSION_ZSTD)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    decoded, decode_s = timed(lambda: parse_ktx2(blob).levels[0])
+    require(np.array_equal(decoded, base), "the ZSTD KTX2 level decodes to its texels")
+    times = {}
+    for on in (True, False):
+        with native_runtime(on):
+            require(native.available() == on, f"VKTF_NATIVE={int(on)}")
+            mips, mips_s = timed(lambda: images.generate_mips(base, True))
+            spec = {"base": images.TextureData(levels=mips, srgb=True), "mr": None,
+                    "normal": None, "samplers": [{}] * 3}
+            pool, pack_s = timed(lambda: build_material_pool([spec]))
+            times[on] = (mips, mips_s, pool.quads, pack_s)
+    (mips_n, mips_ns, quads_n, pack_ns), (mips_p, mips_ps, quads_p, pack_ps) = (
+        times[True], times[False])
+    require(all(np.array_equal(a, b) for a, b in zip(mips_n, mips_p)) and
+            len(mips_n) == len(mips_p), "native mips == numpy mips bit for bit")
+    require(np.array_equal(quads_n, quads_p), "native pool rows == numpy pool rows")
+    log(f"[host] one {side}x{side} sRGB texture (host s; host CPU {host_cpu()}; card {card}): "
+        f"ZSTD KTX2 decode (libzstd) {decode_s:.4f} ({len(blob) / 1e6:.2f} MB -> "
+        f"{base.nbytes / 1e6:.2f} MB; no numpy counterpart); mips native {mips_ns:.4f}, "
+        f"numpy {mips_ps:.4f} (bit-equal); pool pack native {pack_ns:.4f}, numpy "
+        f"{pack_ps:.4f} (bit-equal)")
+
+    loads = {}
+    for on in (True, False):
+        with native_runtime(on):
+            engine = engine_mod.Engine(Window(width=64, height=64), None, viewer_log, device=dev)
+            loaded = engine.load(sponza_zlib_files)
+            loads[on] = (dict(engine.load_seconds), loaded.render_scene)
+            require(loaded.meta == meta, "the loaded sponza has the preset's shape")
+            del engine, loaded
+    for name in ("tri_corner", "tri_static_cols", "quad_pool"):
+        require(torch.equal(getattr(loads[True][1], name), getattr(loads[False][1], name)),
+                f"the sponza's {name}: native load == numpy load")
+    for on, label in ((True, "native"), (False, "numpy (VKTF_NATIVE=0)")):
+        split = loads[on][0]
+        log(f"[host] Engine.load of the sponza's ZLIB files, {label} (host s):",
+            json.dumps({k: round(v, 4) for k, v in split.items()}),
+            f"total {sum(split.values()):.3f}")
+    log("[host] the two loads' tri_corner, tri_static_cols and quad_pool: bit-equal")
+
+
+def host_phase(dev, config, camera, meta, still, zstd_files, export_zstd_s,
+               sponza_zlib_files, kernels, viewer_log, card) -> None:
+    """Phase 16: the native host runtime and the numpy oracle (module
+    docstring)."""
+    from vktf_tpu_torch import engine as engine_mod
+    from vktf_tpu_torch import native
+    from vktf_tpu_torch.loaders.ktx import SUPERCOMPRESSION_ZSTD
+    from vktf_tpu_torch.ops import _cuda
+    from vktf_tpu_torch.window import Window
+
+    t_phase = time.perf_counter()
+    require(native.available(), "the native host runtime is built and loaded")
+    schemes = {struct.unpack_from("<I", f.read_bytes(), 44)[0]
+               for f in zstd_files[0].parent.glob("*.ktx2")}
+    require(schemes == {SUPERCOMPRESSION_ZSTD}, f"every exported level is ZSTD: {schemes}")
+    on_disk = sum(f.stat().st_size for f in zstd_files[0].parent.iterdir())
+    log(f"[host] the sponza exported at the exporter's defaults (RGBA8 KTX2 under ZSTD, "
+        f"level {native.ZSTD_LEVEL}, libzstd) in {export_zstd_s:.3f} host s, "
+        f"{on_disk / 1e6:.1f} MB on disk")
+    with without_zstandard():
+        engine = engine_mod.Engine(Window(width=config.width, height=config.height), config,
+                                   viewer_log, device=dev)
+        loaded = engine.load(zstd_files)
+    load_s = dict(engine.load_seconds)
+    log("[host] Engine.load of the ZSTD sponza (host s, upload ends in a synchronize):",
+        json.dumps({k: round(v, 4) for k, v in load_s.items()}),
+        f"total {sum(load_s.values()):.3f}")
+    require(loaded.meta == meta, "the ZSTD sponza has the in-memory preset's shape")
+    loaded.camera = camera
+    for k in kernels:
+        k.launches = 0
+    frame = loaded.render_still()
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    require(all(launches.get(k.name) == 1 for k in kernels[:4]),
+            f"the ZSTD sponza's frame ran the K = 1 kernels: {launches}")
+    require(np.array_equal(frame, still),
+            "the ZSTD sponza renders phase 4's in-memory frame bit for bit")
+    log(f"[host] the ZSTD sponza at CAMERA, {config.width}x{config.height} "
+        f"{config.msaa_samples}x: launches {json.dumps(launches)}; == phase 4's frame bit "
+        "for bit")
+    del loaded, engine
+    host_timings(sponza_zlib_files, meta, viewer_log, dev, card)
+    oracle_fixtures(dev, kernels, _cuda.BUILD_DIR / "oracle")
+    log(f"[host] phase time: {time.perf_counter() - t_phase:.1f} s")
+
+
 def four_cards(args) -> int:
     """--four-cards: phase 15d alone, on a machine with four cards: the
     sources built, the opaque, translucent and mixed sponza's single-device
@@ -923,7 +1227,8 @@ def main() -> int:
     from vktf_tpu_torch.models.export import export_asset, export_preset
     from vktf_tpu_torch.models.scenes import (SAMPLER_PRESETS, build_preset, set_blend,
                                               set_samplers, sponza_like_asset)
-    from vktf_tpu_torch.ops import (_cuda, pipeline, present, raster, setup_kernel,
+    from vktf_tpu_torch import native
+    from vktf_tpu_torch.ops import (_cuda, _host, pipeline, present, raster, setup_kernel,
                                     shade_kernel, shade_table)
     from vktf_tpu_torch.scene.scene import Scene
 
@@ -947,6 +1252,13 @@ def main() -> int:
         log(f"ptxas {source}: " + " | ".join(
             line.strip() for line in _cuda.build_log(source).splitlines()
             if "registers" in line or "spill" in line or "Compiling entry" in line))
+    t0 = time.perf_counter()
+    native_lib = _host.build("vktf_native.cpp")
+    native_build_s = time.perf_counter() - t0
+    require(native.available(), "the native host runtime loads")
+    log(f"[host] native runtime: g++ {native_build_s:.2f} s -> {native_lib.name}; zstandard "
+        f"installed: {importlib.util.find_spec('zstandard') is not None} (hidden wherever "
+        "this run writes or reads ZSTD, which goes through libzstd)")
 
     # ---- 3. scene -------------------------------------------------------
     width, height = (256, 128) if args.small else (1920, 1080)
@@ -970,6 +1282,11 @@ def main() -> int:
     sponza_files = [export_asset(a, asset_dir / "sponza", "rgba", viewer_log,
                                  SUPERCOMPRESSION_ZLIB) for a in assets]
     export_sponza_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with without_zstandard():  # the exporter's defaults: RGBA8 KTX2 under ZSTD
+        zstd_files = [export_asset(a, asset_dir / "sponza_zstd", "rgba", viewer_log)
+                      for a in assets]
+    export_zstd_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     box_files = export_preset("box", asset_dir / "box", "basis", viewer_log)
     export_box_s = time.perf_counter() - t0
@@ -1718,6 +2035,10 @@ def main() -> int:
     log("[mesh] launches on the mesh paths (NCCL 1x1 and every rank of the spawns):",
         json.dumps(dict(mesh_launches)))
     log(f"[mesh] phase time: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 16. the native host runtime and the numpy oracle ------------------
+    host_phase(dev, config, camera, meta, still, zstd_files, export_zstd_s, sponza_files,
+               kernels, viewer_log, card)
     for r in records:
         r["mesh_launches"] = mesh_launches.get(r["name"], 0)
 

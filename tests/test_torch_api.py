@@ -194,3 +194,36 @@ def test_flatten_assets_takes_the_jax_call():
             np.testing.assert_array_equal(level, jlevel)
     with pytest.raises(TypeError):
         flatten_assets(tp.torch_assets("box"), "cpu")
+
+
+def _module_functions(module) -> dict:
+    """The public functions and classes a module defines itself."""
+    import inspect
+
+    return {name: obj for name, obj in vars(module).items()
+            if not name.startswith("_") and (inspect.isfunction(obj) or inspect.isclass(obj))
+            and obj.__module__ == module.__name__}
+
+
+@pytest.mark.parametrize("module", ["native", "ops.reference"])
+def test_native_and_oracle_carry_the_jax_names(module):
+    """The native runtime and the numpy oracle have every public name of
+    their JAX counterparts, with the same parameters."""
+    import inspect
+
+    jax_names = _module_functions(importlib.import_module("vktf_tpu." + module))
+    port_names = _module_functions(importlib.import_module("vktf_tpu_torch." + module))
+    assert set(jax_names) <= set(port_names), sorted(set(jax_names) - set(port_names))
+    for name, obj in jax_names.items():
+        assert (list(inspect.signature(port_names[name]).parameters)
+                == list(inspect.signature(obj).parameters)), name
+
+
+def test_scene_binning_diagnostics_reports_no_drops():
+    """The streaming raster keeps no fixed-capacity lists: the JAX Scene's
+    pallas-backend answer, zero drops."""
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.scene.scene import Scene
+
+    scene = Scene(tp.torch_assets("box"), RenderConfig(width=32, height=16), device="cpu")
+    assert scene.binning_diagnostics() == {"dropped_pairs": 0, "dropped_large": 0}

@@ -190,8 +190,9 @@ def test_plain_versions_count_no_launches():
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports the port's package, touches every name
-    it and its subpackages export (the lazy Engine, Window and Scene too)
-    and renders a frame without loading jax or the JAX package."""
+    it and its subpackages export (the lazy Engine, Window and Scene too),
+    the native runtime (built and called) and the numpy oracle, and renders
+    a frame without loading jax or the JAX package."""
     code = textwrap.dedent("""
         import importlib
         import sys
@@ -202,10 +203,13 @@ def test_port_imports_no_jax():
             module = importlib.import_module("vktf_tpu_torch" + sub)
             for name in module.__all__:
                 getattr(module, name)
+        from vktf_tpu_torch import native
         from vktf_tpu_torch.config import RenderConfig
         from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
         from vktf_tpu_torch.models.scenes import build_preset
+        from vktf_tpu_torch.ops import reference
         from vktf_tpu_torch.scene.scene import Scene
+        assert native.compress_zstd(b"x" * 64) and reference.render_reference
         camera = Camera((-2.5, 0.8, 0.0), (1.0, -0.3, 0.0),
                         ViewFrustumParams(0.8, 2.0, 0.1, 100.0))
         scene = Scene(build_preset("box"),

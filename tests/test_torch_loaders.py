@@ -459,6 +459,45 @@ def test_hostile_fields_raise_like_jax(mutation, tmp_path):
     _raises_both(path)
 
 
+# Accessor layouts the native unpack must never be handed: each would read
+# outside the buffer view if its offset and stride were trusted.
+_LAYOUT_MUTATIONS = {
+    "acc_offset_neg": lambda g: g["accessors"][0].update(byteOffset=-100, count=10),
+    "acc_offset_float": lambda g: g["accessors"][0].__setitem__("byteOffset", 1.5),
+    "bv_stride_neg": lambda g: g["bufferViews"][1].__setitem__("byteStride", -12),
+    "bv_stride_short": lambda g: g["bufferViews"][1].__setitem__("byteStride", 4),
+}
+
+
+@pytest.mark.parametrize("mutation", sorted(_LAYOUT_MUTATIONS))
+def test_hostile_accessor_layout_loads_as_numpy_does(mutation, tmp_path, monkeypatch):
+    """With the native runtime built, a negative or fractional accessor
+    offset and a negative or short view stride give what numpy alone gives
+    (the same GltfError, or the same in-bounds arrays): the native unpack is
+    never reached with them. A negative offset raises, as it did before the
+    runtime existed."""
+    from vktf_tpu_torch import native
+    from vktf_tpu_torch.loaders.gltf import GltfError, load_gltf
+
+    assert native.available()
+    g = json.loads(_box(tmp_path).read_text())
+    _LAYOUT_MUTATIONS[mutation](g)
+    path = tmp_path / f"{mutation}.gltf"
+    path.write_text(json.dumps(g))
+
+    def outcome():
+        try:
+            return asset_tree(load_gltf(path, _logs()[0]))
+        except GltfError as error:
+            return ("GltfError", str(error))
+
+    got = outcome()
+    monkeypatch.setenv("VKTF_NATIVE", "0")
+    assert got == outcome()
+    if mutation == "acc_offset_neg":
+        assert got[0] == "GltfError"
+
+
 @pytest.mark.parametrize("body", ["[]", "null", "3", "{not json", "MISSING"])
 def test_bad_files_raise_like_jax(body, tmp_path):
     path = tmp_path / "bad.gltf"
@@ -712,9 +751,10 @@ def test_basis_huffman_and_uastc_hook():
 
 
 def test_zstd_without_zstandard_raises(monkeypatch, tmp_path):
-    """Without the zstandard module, ZSTD levels raise KtxError naming it,
-    in parse, encode, texture decode and scene build (no default texture),
-    while ZLIB and NONE still decode."""
+    """Without the zstandard module and without the native runtime
+    (VKTF_NATIVE=0), ZSTD levels raise KtxError naming both, in parse,
+    encode, texture decode and scene build (no default texture), while ZLIB
+    and NONE still decode."""
     from vktf_tpu_torch.loaders import ktx
     from vktf_tpu_torch.loaders.gltf import Texture
     from vktf_tpu_torch.loaders.images import decode_texture
@@ -722,7 +762,8 @@ def test_zstd_without_zstandard_raises(monkeypatch, tmp_path):
 
     zstd_blob = KTX_CASES["zstd_srgb"]()
     monkeypatch.setitem(sys.modules, "zstandard", None)
-    with pytest.raises(ktx.KtxError, match="zstandard"):
+    monkeypatch.setenv("VKTF_NATIVE", "0")
+    with pytest.raises(ktx.KtxError, match="native runtime.*zstandard"):
         ktx.parse_ktx2(zstd_blob)
     with pytest.raises(ktx.KtxError, match="zstandard"):
         ktx.encode_ktx2([np.zeros((2, 2, 4), np.uint8)], True, ktx.SUPERCOMPRESSION_ZSTD)

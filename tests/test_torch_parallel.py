@@ -165,8 +165,8 @@ def rendered(scenes, tmp_path_factory):
     game_argv = [box, "--width", "64", "--height", "48", "--msaa", "4", "--frames", "3",
                  "--display", "off"]
     out = launch.run(_four_ranks, 4, scenes, box, engine_config, game_argv,
-                     str(root / "mesh_frames"))
-    out.update(launch.run(_two_ranks, 2, scenes))
+                     str(root / "mesh_frames"), device="cpu")
+    out.update(launch.run(_two_ranks, 2, scenes, device="cpu"))
     out["engine_single"] = _engine_frames(box, engine_config)
     out["game_single"] = _game_frames(game_argv, root / "frames")
     return out
@@ -341,3 +341,14 @@ def test_game_mesh_without_a_launcher_names_torchrun(tmp_path, capsys):
     assert rc == 1
     assert "torchrun" in capsys.readouterr().err
     assert not frames.exists()
+
+
+def test_run_takes_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """launch.run's ranks run on the card by default; with no card it
+    raises before it spawns anything, naming device="cpu"."""
+    from vktf_tpu_torch.parallel import launch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.multiprocessing, "spawn", lambda *a, **k: pytest.fail("spawned"))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        launch.run(_two_ranks, 2, {})

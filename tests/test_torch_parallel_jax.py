@@ -98,7 +98,8 @@ def _port_ranks(leaves, meta, mixed_leaves, mixed_meta):
 def port():
     from vktf_tpu_torch.parallel import launch
 
-    return launch.run(_port_ranks, 4, *_jax_scene_leaves(), *_jax_scene_leaves(MIXED))
+    return launch.run(_port_ranks, 4, *_jax_scene_leaves(), *_jax_scene_leaves(MIXED),
+                      device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,7 @@ from typing import Optional
 
 import numpy as np
 
+from vktf_tpu_torch import native
 from vktf_tpu_torch.log import Log, default_log
 
 
@@ -321,6 +322,8 @@ def decode_etc1s_blocks(endpoint_ids, selector_ids, endpoints, selectors,
     """Expand per-block (endpoint id, selector id) to an (H, W, 4) RGBA8
     image. endpoints: (E, 4) int32 [r5, g5, b5, inten]; selectors: (S, 16)
     uint8 of 2-bit selector values in raster order within the 4x4 block.
+    The native runtime expands the blocks when it is built
+    (``vktf_tpu_torch.native.decode_etc1s``, equal bit for bit).
     """
     bw = (width + 3) // 4
     bh = (height + 3) // 4
@@ -328,6 +331,10 @@ def decode_etc1s_blocks(endpoint_ids, selector_ids, endpoints, selectors,
     selector_ids = np.asarray(selector_ids, np.int32).reshape(bh, bw)
     endpoints = np.asarray(endpoints, np.int32)
     selectors = np.asarray(selectors, np.uint8)
+    out = native.decode_etc1s(endpoint_ids, selector_ids, endpoints, selectors, width,
+                              height)
+    if out is not None:
+        return out
 
     base5 = endpoints[endpoint_ids][..., :3]  # (bh, bw, 3)
     base8 = _expand5(base5)

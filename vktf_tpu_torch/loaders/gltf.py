@@ -34,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 
+from vktf_tpu_torch import native
 from vktf_tpu_torch.loaders.images import TextureData
 from vktf_tpu_torch.log import Log, default_log
 
@@ -314,8 +315,31 @@ def read_accessor(gltf: dict, buffers: _BufferCache, accessor_index: int) -> np.
 
 
 def accessor_to_float(gltf: dict, buffers: _BufferCache, accessor_index: int) -> np.ndarray:
-    """Accessor -> float32 (count, components), honoring `normalized`."""
+    """Accessor -> float32 (count, components), honoring `normalized`.
+
+    A plain (non-sparse) accessor whose offset and stride are sane integers
+    and whose elements lie inside its buffer view takes the native runtime's
+    unpack when it is built (``vktf_tpu_torch.native.unpack_accessor``, equal
+    bit for bit); every other one, and every accessor without the runtime,
+    numpy's, which raises or stays inside the view on hostile fields."""
     accessor = gltf["accessors"][accessor_index]
+    count = accessor["count"]
+    if ("bufferView" in accessor and not accessor.get("sparse")
+            and isinstance(count, int) and count > 0):
+        ncomp = _TYPE_COUNTS[accessor["type"]]
+        elem_size = np.dtype(_COMPONENT_DTYPES[accessor["componentType"]]).itemsize * ncomp
+        raw_bytes, stride = _buffer_view_bytes(gltf, buffers, accessor["bufferView"])
+        offset = accessor.get("byteOffset", 0)
+        stride = stride or elem_size  # 0 or absent: tightly packed
+        sane = (isinstance(offset, int) and isinstance(stride, int)
+                and offset >= 0 and stride >= elem_size)
+        end = offset + stride * (count - 1) + elem_size if sane else -1
+        if sane and end <= len(raw_bytes):
+            out = native.unpack_accessor(raw_bytes[offset:end], count, ncomp,
+                                         accessor["componentType"],
+                                         bool(accessor.get("normalized")), stride)
+            if out is not None:
+                return out
     raw = read_accessor(gltf, buffers, accessor_index)
     out = raw.astype(np.float32)
     if accessor.get("normalized") and raw.dtype in _NORMALIZE_SCALE:

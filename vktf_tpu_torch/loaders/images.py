@@ -16,6 +16,7 @@ from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 
+from vktf_tpu_torch import native
 from vktf_tpu_torch.loaders.ktx import KtxCodecError, KtxError, parse_ktx2
 from vktf_tpu_torch.log import Log, default_log
 
@@ -47,6 +48,11 @@ def linear_to_srgb(linear: np.ndarray) -> np.ndarray:
     )
 
 
+def quantize_u8(values: np.ndarray) -> np.ndarray:
+    """[0, 1] floats -> u8, rounded half up (values outside clamp)."""
+    return (np.clip(values, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+
 def _halve(level: np.ndarray) -> np.ndarray:
     """2x2 box-filter downsample, edge-clamped taps, floor-sized output."""
     h, w = level.shape[:2]
@@ -62,7 +68,12 @@ def _halve(level: np.ndarray) -> np.ndarray:
 
 
 def generate_mips(base: np.ndarray, srgb: bool) -> list[np.ndarray]:
-    """Full mip chain from an RGBA8 base level, filtered in linear space."""
+    """Full mip chain from an RGBA8 base level, filtered in linear space:
+    the native runtime's when it is built (``vktf_tpu_torch.native``, equal
+    bit for bit), numpy's otherwise."""
+    native_levels = native.generate_mips(base, srgb)
+    if native_levels is not None:
+        return native_levels
     levels = [np.ascontiguousarray(base, np.uint8)]
     current = base.astype(np.float32) / 255.0
     if srgb:
@@ -75,8 +86,7 @@ def generate_mips(base: np.ndarray, srgb: bool) -> list[np.ndarray]:
             quantized = np.concatenate(
                 [linear_to_srgb(current[..., :3]), current[..., 3:]], axis=-1
             )
-        levels.append(
-            (np.clip(quantized, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8))
+        levels.append(quantize_u8(quantized))
     return levels
 
 
@@ -101,8 +111,8 @@ def decode_texture(texture: Optional["Texture"], kind: str,
     as the procedural presets build them) returns it. Returns None, with a
     logged error, when the source is missing or undecodable; callers apply
     the reference's logged default (model.cppm:368-409). A codec this
-    installation lacks (ZSTD without ``zstandard``, PNG/JPEG without PIL)
-    raises instead: that is no fault of the file.
+    installation lacks (ZSTD without the native runtime or ``zstandard``,
+    PNG/JPEG without PIL) raises instead: that is no fault of the file.
     """
     log = log or default_log()
     if texture is None:

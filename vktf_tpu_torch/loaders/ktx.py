@@ -1,8 +1,11 @@
 """KTX2 texture container loading.
 
 The port's copy of ``vktf_tpu/loaders/ktx.py``. Supercompression: NONE,
-ZLIB (stdlib ``zlib``) and BasisLZ need nothing beyond numpy; ZSTD needs
-the ``zstandard`` module, and without it raises ``KtxError`` naming it.
+ZLIB (stdlib ``zlib``) and BasisLZ need nothing beyond numpy. ZSTD is read
+through the native runtime's libzstd (``vktf_tpu_torch.native``), else the
+``zstandard`` module, and written by ``zstandard`` where it is installed
+(the JAX exporter's bytes), else by libzstd; with neither it raises
+``KtxCodecError`` naming both.
 
 A re-design of the reference KTX path (src/engine/ktx_texture.cppm):
 where the reference transcodes Basis-supercompressed data to a GPU block
@@ -29,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 
+from vktf_tpu_torch import native
 from vktf_tpu_torch.log import Log, default_log
 
 
@@ -37,7 +41,8 @@ class KtxError(RuntimeError):
 
 
 class KtxCodecError(KtxError):
-    """A level codec this installation lacks (ZSTD without ``zstandard``):
+    """A level codec this installation lacks (ZSTD with neither the native
+    runtime nor ``zstandard``):
     a fault of the environment, not of the file, so texture decode raises it
     instead of taking the default texture."""
 
@@ -123,6 +128,13 @@ def _decompress_level(payload: bytes, scheme: int, uncompressed_length: int,
             f"dimensions imply at most {expected_length}"
         )
     if scheme == SUPERCOMPRESSION_ZSTD:
+        capacity = uncompressed_length or expected_length
+        if capacity and native.available():
+            out = native.decompress_zstd(payload, capacity)
+            if out is None:
+                raise KtxError("zstd level data corrupt, or longer than "
+                               f"{capacity} bytes")
+            return out
         zstandard = _zstandard()
         try:
             return zstandard.ZstdDecompressor().decompress(
@@ -141,16 +153,33 @@ def _decompress_level(payload: bytes, scheme: int, uncompressed_length: int,
 
 
 def _zstandard():
-    """The ``zstandard`` module, or KtxError naming it when it is absent."""
+    """The ``zstandard`` module, or KtxCodecError naming both ZSTD codecs
+    when it is absent (asked for only when the native runtime is)."""
     try:
         import zstandard
     except ImportError as error:
         raise KtxCodecError(
-            "ZSTD supercompression needs the 'zstandard' module, which is not "
-            "installed; write such textures with SUPERCOMPRESSION_ZLIB or "
-            "SUPERCOMPRESSION_NONE"
+            "ZSTD supercompression needs the native runtime (vktf_tpu_torch.native: "
+            "g++ and libzstd.so.1, and VKTF_NATIVE not 0) or the 'zstandard' module, "
+            "and neither is available; write such textures with SUPERCOMPRESSION_ZLIB "
+            "or SUPERCOMPRESSION_NONE"
         ) from error
     return zstandard
+
+
+def _compress_zstd(raw: bytes) -> bytes:
+    """One ZSTD frame at level 3. ``zstandard`` writes it where it is
+    installed, so the port writes the JAX exporter's bytes (another zstd
+    release may choose other matches); the native runtime's libzstd
+    everywhere else."""
+    try:
+        import zstandard
+    except ImportError:
+        out = native.compress_zstd(raw)
+        if out is None:
+            _zstandard()  # raises KtxCodecError naming both codecs
+        return out
+    return zstandard.ZstdCompressor().compress(raw)
 
 
 def _parse_basis(
@@ -353,7 +382,7 @@ def encode_ktx2(
     for level in levels:
         raw = np.ascontiguousarray(level, np.uint8).tobytes()
         if supercompression == SUPERCOMPRESSION_ZSTD:
-            blobs.append((_zstandard().ZstdCompressor().compress(raw), len(raw)))
+            blobs.append((_compress_zstd(raw), len(raw)))
         elif supercompression == SUPERCOMPRESSION_ZLIB:
             import zlib
 

@@ -1,10 +1,11 @@
 """glTF 2.0 exporter: serialize a loader Asset back to .gltf + .ktx2 files.
 
 The port's counterpart of ``vktf_tpu/models/export.py``; both write the
-same bytes for the same asset. One argument more: the KTX2
+same bytes for the same asset (ZSTD levels: where ``zstandard`` is
+installed, ``loaders/ktx.py``). One argument more: the KTX2
 supercompression of ``texture_format="rgba"`` (ZSTD as in the JAX package,
-which needs ``zstandard``; ZLIB and NONE need nothing beyond the standard
-library and are lossless too).
+through ``zstandard`` or the native runtime's libzstd; ZLIB and NONE need
+nothing beyond the standard library and are lossless too).
 
 The loader (vktf_tpu_torch.loaders.gltf) parses files into the in-memory Asset
 model; this module writes that model back out — geometry through
@@ -221,7 +222,7 @@ def main(argv=None) -> int:
     parser.add_argument("--supercompression", default="zstd",
                         choices=sorted(_SUPERCOMPRESSION),
                         help="KTX2 supercompression of --texture-format rgba "
-                             "(zstd needs the zstandard module)")
+                             "(zstd through libzstd or the zstandard module)")
     args = parser.parse_args(argv)
     paths = export_preset(args.preset, Path(args.out), args.texture_format,
                           supercompression=_SUPERCOMPRESSION[args.supercompression])

@@ -13,7 +13,9 @@ textures of a material (base, metallic-roughness, normal):
 
 Rows are 64 u32 lanes stored as 128 u16 halves (little-endian). Per-level
 block-row offsets have a closed form for pow2-square chains, so the shade
-needs no offset table. The row budget of the JAX package (its TPU gather
+needs no offset table. Rows come from the native runtime when it is built
+(``vktf_tpu_torch.native.pack_blocks_level``, equal bit for bit), from
+numpy otherwise. The row budget of the JAX package (its TPU gather
 cliff) is kept so both packages build the same pool.
 """
 
@@ -24,6 +26,7 @@ import logging
 
 import numpy as np
 
+from vktf_tpu_torch import native
 from vktf_tpu_torch.loaders.images import TextureData, default_texture_data, generate_mips
 
 log = logging.getLogger(__name__)
@@ -230,8 +233,9 @@ def build_material_pool(
         for l in range(levels):
             w = max(size >> l, 1)
             packed_next = packed_levels[l + 1] if l + 1 < levels else None
-            blobs.append(_pack_blocks_level(packed_levels[l], w, wraps,
-                                            packed_next))
+            rows_native = native.pack_blocks_level(packed_levels[l], packed_next, wraps)
+            blobs.append(rows_native if rows_native is not None else
+                         _pack_blocks_level(packed_levels[l], w, wraps, packed_next))
             row_cursor += max(w >> 1, 1) ** 2
 
     rows = np.concatenate(blobs) if blobs else np.zeros((1, ROW_U32), np.uint32)

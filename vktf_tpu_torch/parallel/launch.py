@@ -56,16 +56,22 @@ def _worker(rank: int, world_size: int, device: str, backend: str, rendezvous: s
         dist.destroy_process_group()
 
 
-def run(fn, world_size: int, *args, device: str = "cpu", backend: Optional[str] = None,
-        timeout_s: float = 600.0):
+def run(fn, world_size: int, *args, device: Optional[str] = None,
+        backend: Optional[str] = None, timeout_s: float = 600.0):
     """fn(*args) on `world_size` spawned ranks; rank 0's result (pickled
-    through torch.save). device "cuda" gives rank r the card r modulo the
-    card count; backend defaults to NCCL on cards and gloo on the CPU. A
-    rank that raises stops the others and re-raises here; a run longer than
-    timeout_s is stopped and raises TimeoutError. fn must be importable by
+    through torch.save). device "cuda" (the default) gives rank r the card r
+    modulo the card count, and raises when there is no card: the CPU must be
+    asked for with device="cpu". backend defaults to NCCL on cards and gloo
+    on the CPU. A rank that raises stops the others and re-raises here; a
+    run longer than timeout_s is stopped and raises TimeoutError. fn must be importable by
     name (a module's top level), and a script that calls run must do so
     under its ``__main__`` check: each rank imports the caller's main
     module."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device=\"cpu\" to run the ranks "
+                               "on the CPU")
+        device = "cuda"
     backend = backend or _default_backend(device)
     rendezvous = tempfile.mkdtemp(prefix="vktf_launch_")
     context = None

@@ -159,13 +159,16 @@ def flatten_assets_numpy(assets: Sequence[Asset], log: Optional[Log] = None,
     """Combine assets into the frame path's leaves as numpy arrays (the JAX
     package's dtypes and values) plus the static SceneMeta. ``decoded`` is
     ``decode_textures``' result for these assets (decoded here when None)."""
-    leaves, meta, _entries = _flatten(assets, log, decoded)
+    leaves, meta, _entries, _oracle = _flatten(assets, log, decoded)
     return leaves, meta
 
 
-def _flatten(assets, log, decoded):
-    """(leaves, meta, texture entries): flatten_assets_numpy's result and
-    the (TextureData, sampler dict) of each texture slot the pool holds."""
+def _flatten(assets, log, decoded, oracle: bool = False):
+    """(leaves, meta, texture entries, oracle arrays): flatten_assets_numpy's
+    result, the (TextureData, sampler dict) of each texture slot the pool
+    holds, and, when `oracle` is set (only ``ops/reference.py`` sets it),
+    the vertex-level arrays the numpy oracle reads, under the JAX
+    RenderScene's field names; None otherwise."""
     log = log or default_log()
     order: list[tuple[Asset, int, int, int]] = []
     for asset in assets:
@@ -210,7 +213,7 @@ def _flatten(assets, log, decoded):
 
     # ---- instances + geometry ----------------------------------------------
     positions_list, normals_list, tangents_list, uvs_list = [], [], [], []
-    indices_list, tri_inst_list = [], []
+    indices_list, tri_inst_list, vert_inst_list = [], [], []
     inst_nodes: list[int] = []
     inst_aabbs: list[np.ndarray] = []
     inst_materials: list[int] = []
@@ -257,6 +260,8 @@ def _flatten(assets, log, decoded):
             uvs_list.append(np.asarray(uvs, np.float32))
             indices_list.append(prim.indices.astype(np.int64) + vertex_offset)
             tri_inst_list.append(np.full(prim.indices.shape[0], instance, np.int32))
+            if oracle:
+                vert_inst_list.append(np.full(count, instance, np.int32))
             vertex_offset += count
 
     if not inst_nodes:
@@ -425,7 +430,19 @@ def _flatten(assets, log, decoded):
         mixed_samplers=material_pool.mixed,
         mirror_wrap=material_pool.mirror,
     )
-    return leaves, meta, texture_entries
+    if not oracle:
+        return leaves, meta, texture_entries, None
+    arrays = {
+        "positions": positions, "normals": normals, "tangents": tangents, "uvs": uvs,
+        "indices": indices, "tri_material": tri_material,
+        "vertex_instance": np.concatenate(vert_inst_list),
+        "mat_base_color": mat_base_color, "mat_metallic_roughness": mat_mr,
+        "mat_normal_scale": mat_normal_scale, "mat_alpha": mat_alpha,
+        "mat_textures": mat_textures,
+        **{name: leaves[name] for name in ("node_local", "node_parent", "inst_node",
+                                           "light_node", "light_type", "light_color")},
+    }
+    return leaves, meta, texture_entries, arrays
 
 
 _INDEX_LEAVES = ("node_parent", "inst_node", "tri_instance", "light_node",
@@ -465,5 +482,5 @@ def flatten_assets(assets: Sequence[Asset], log: Optional[Log] = None, *,
     if log is not None and not isinstance(log, Log):
         raise TypeError(f"flatten_assets(assets, log=None, *, device=None) takes a Log "
                         f"as its second argument, got {log!r}: pass the device by name")
-    leaves, meta, entries = _flatten(assets, log, None)
+    leaves, meta, entries, _oracle = _flatten(assets, log, None)
     return scene_from_numpy(leaves, resolve_device(device)), meta, {"texture_entries": entries}

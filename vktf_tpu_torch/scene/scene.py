@@ -92,6 +92,12 @@ class Scene:
                                   self.camera.view_projection_transform,
                                   self.camera.position)
 
+    def binning_diagnostics(self) -> dict:
+        """Dropped-triangle diagnostics for the current camera, as the JAX
+        Scene's: the streaming raster keeps no fixed-capacity tile lists,
+        so it drops nothing and always reports zeros."""
+        return {"dropped_pairs": 0, "dropped_large": 0}
+
     def render_still(self) -> np.ndarray:
         """The exact full-size (3, H, W) uint8 frame at the current camera,
         on the host, whatever the present encoding: under a preview or
