@@ -1344,8 +1344,9 @@ def main() -> int:
             f"steady median {float(np.median(steady)):.3f}, min {min(steady):.3f}, "
             f"all {[round(v, 3) for v in frame_ms]}; with {FRAMES_IN_FLIGHT} frames in "
             f"flight: {flight_ms:.3f} per frame over {n_flight}")
-        stages = {name: float(np.median([s[name] for s in stage_ms[1:] or stage_ms]))
-                  for name in stage_ms[0]}
+        # stream_order is a stage only of the frames that re-sort: 0 ms elsewhere
+        stages = {name: float(np.median([s.get(name, 0.0) for s in stage_ms[1:] or stage_ms]))
+                  for name in dict.fromkeys(n for s in stage_ms for n in s)}
         log(f"[{tag}] stage ms (CUDA events, steady median):",
             json.dumps({k: round(v, 4) for k, v in stages.items()}))
         cfg = scn.config

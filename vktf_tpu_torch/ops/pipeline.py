@@ -58,6 +58,14 @@ once the frame is enqueued, and several frames can be in flight. Stage
 and frame times on the card, synchronized and with frames in flight:
 PERF.md.
 
+Under ``torch.profiler`` each stage is a span ``frame.<stage>``, flat and
+covering the frame's launches, in this order: camera (the staged copy),
+scene_update, setup, stream_order (only in a frame that re-sorts), raster
+(prologue and kernel), shade_table, winner, attrs, shade, composite (K > 1
+and sample rate) and present; the mesh program's stages likewise
+(``parallel/tiles.py``). With no profiler running and no stage timer set a
+stage is one shared no-op context.
+
 The JAX program ran the setup kernel twice (a second pass over
 Morton-permuted inputs) and split the shade into two programs; both were
 TPU layout economies that leave the frame unchanged, and are not copied.
@@ -77,6 +85,7 @@ from vktf_tpu_torch.ops import _cuda, present, raster, setup_kernel, shade_kerne
 from vktf_tpu_torch.ops.fmath import f32, fma
 from vktf_tpu_torch.ops.vertex import propagate_transforms
 from vktf_tpu_torch.scene.flatten import RenderScene, SceneMeta
+from vktf_tpu_torch.utils import profiling
 
 
 def gather_world_lights(node_global, light_node, light_type, light_color):
@@ -292,6 +301,9 @@ class FrameProgram:
         return self._scene_state
 
     def _maybe_resort(self, setup, view_projection):
+        """The stream order, rebuilt (stage "stream_order", so a frame has
+        that span only when it re-sorts) when there is none on the setup's
+        device or the camera moved past ``config.resort_threshold``."""
         vp = np.asarray(view_projection, dtype=np.float64)
         # scenes of one shape may share this program (runtime/cache.py): any
         # permutation orders any of their streams, but only on its device
@@ -301,19 +313,28 @@ class FrameProgram:
             if (np.linalg.norm(vp - ref)
                     <= self.config.resort_threshold * np.linalg.norm(ref)):
                 return self._perm
-        self._perm = raster.stream_perm(setup["bbox_rows"], setup["valid"],
-                                        chunk=self.config.pallas_chunk)
+        with self._stage("stream_order"):
+            self._perm = raster.stream_perm(setup["bbox_rows"], setup["valid"],
+                                            chunk=self.config.pallas_chunk)
         self._sort_vp = vp
         return self._perm
 
-    @contextlib.contextmanager
     def _stage(self, name: str):
+        """Stage `name` of the frame: the profiler span ``frame.<name>`` (the
+        shared no-op context while no profiler runs) and, while ``timer``
+        is set, the stage's CUDA-event pair. Stages do not nest: the timer
+        closes its last mark."""
+        span = profiling.annotate("frame." + name)
         if self.timer is None:
+            return span
+        return self._timed(span, name)
+
+    @contextlib.contextmanager
+    def _timed(self, span, name: str):
+        with span:
+            self.timer.start(name)
             yield
-            return
-        self.timer.start(name)
-        yield
-        self.timer.stop()
+            self.timer.stop()
 
     def __call__(self, scene: RenderScene, view_projection,
                  camera_position) -> torch.Tensor:
@@ -325,15 +346,16 @@ class FrameProgram:
     def _frame(self, scene: RenderScene, view_projection, camera_position) -> torch.Tensor:
         cfg = self.config
         dev = scene.device
-        # one staged copy: vp (4, 4) and the camera position behind it
-        staged = to_device(np.concatenate([np.ravel(view_projection),
-                                           np.ravel(camera_position)]), dev)
-        vp, cam = staged[:16].view(4, 4), staged[16:19]
         ph, pw = cfg.padded_height, cfg.padded_width
-        if self._centers is None or self._centers[0].device != dev:
-            self._centers = (sample_centers(ph, pw, cfg.msaa_samples, dev)
-                             if cfg.shading_rate == "sample" else pixel_centers(ph, pw, dev))
-            self._background = to_device(cfg.clear_color[:3], dev)
+        with self._stage("camera"):
+            # one staged copy: vp (4, 4) and the camera position behind it
+            staged = to_device(np.concatenate([np.ravel(view_projection),
+                                               np.ravel(camera_position)]), dev)
+            vp, cam = staged[:16].view(4, 4), staged[16:19]
+            if self._centers is None or self._centers[0].device != dev:
+                self._centers = (sample_centers(ph, pw, cfg.msaa_samples, dev)
+                                 if cfg.shading_rate == "sample" else pixel_centers(ph, pw, dev))
+                self._background = to_device(cfg.clear_color[:3], dev)
         background = self._background
 
         with self._stage("scene_update"):
@@ -341,8 +363,8 @@ class FrameProgram:
         with self._stage("setup"):
             setup = setup_kernel.setup_pack(scene.tri_corner, inst_rows, tri_instance,
                                             vp, cfg.width, cfg.height)
+        perm = self._maybe_resort(setup, view_projection)
         with self._stage("raster"):
-            perm = self._maybe_resort(setup, view_projection)
             stream = raster.raster_stream(setup["tri_data"], setup["bbox_rows"],
                                           perm, chunk=cfg.pallas_chunk)
             ids, depth = raster.rasterize(*stream, ph, pw, cfg.msaa_samples,
@@ -353,22 +375,22 @@ class FrameProgram:
                 setup["anchor2"], inst_rows, tri_instance)
         pool = scene.quad_pool
         if cfg.shading_rate == "sample":
-            return self._present(self._shade_samples(ids.reshape(self.layers, -1),
-                                                     *self._centers, table, pool, cam, lights,
-                                                     background))
+            return self._present(self._shade_samples(ids, *self._centers, table, pool, cam,
+                                                     lights, background))
         with self._stage("winner"):
             tri, frac = pixel_winner(ids, depth)
         return self._present(self._shade_pixels(tri, frac, *self._centers, table, pool, cam,
                                                 lights, background))
 
     def _shade_samples(self, ids, sx, sy, table, pool, cam, lights, background):
-        """Sample-rate shading of the (K, S*N) sample-major ids at the given
-        sample positions, composited and averaged per pixel: (N,) i32
-        packed."""
+        """Sample-rate shading of the sample-major ids ((K, S*N), or the
+        raster's (K, S, H, W)) at the given sample positions, composited and
+        averaged per pixel: (N,) i32 packed."""
         form, cfg = self.form, self.config
         with self._stage("shade"):
-            rgb, alpha = shade_kernel.shade_layer(ids, sx, sy, table, pool, cam, lights,
-                                                  cfg.max_anisotropy, form.texels, form.taps)
+            rgb, alpha = shade_kernel.shade_layer(ids.reshape(self.layers, -1), sx, sy, table,
+                                                  pool, cam, lights, cfg.max_anisotropy,
+                                                  form.texels, form.taps)
         with self._stage("composite"):
             return composite_samples(rgb, alpha, background, self._samples)
 

@@ -368,10 +368,10 @@ class ShardedFrameProgram(FrameProgram):
             gathered = mesh.all_gather(rows, "sp").wait()
             local = gathered.view(mesh.sp, _SETUP_ROWS, self.t_micro).permute(1, 0, 2).reshape(
                 _SETUP_ROWS, mesh.sp * self.t_micro)
-        with self._stage("raster"):
             tri_data, bbox_rows = local[:setup_kernel.TRI_ROWS], local[setup_kernel.TRI_ROWS:]
-            perm = self._maybe_resort({"bbox_rows": bbox_rows, "valid": tri_data[15] >= 0.0},
-                                      view_projection)
+            valid = tri_data[15] >= 0.0
+        perm = self._maybe_resort({"bbox_rows": bbox_rows, "valid": valid}, view_projection)
+        with self._stage("raster"):
             stream = raster.raster_stream(tri_data, bbox_rows, perm, chunk=cfg.pallas_chunk)
             ids, depth = raster.rasterize(*stream, self.band_h, pw, cfg.msaa_samples,
                                           self.layers, y_offset=self.band_y0)

@@ -1,11 +1,15 @@
-"""Tracing, profiling and event counters.
+"""Spans and event counters.
 
 The port's counterpart of ``vktf_tpu/utils/profiling.py``:
 
-  * ``trace(log_dir)`` profiles a block with ``torch.profiler`` (the host
-    and, on a card, its kernels) and writes a Chrome trace into log_dir;
-  * ``annotate(name)`` is a named span (``torch.profiler.record_function``),
-    visible in such a trace;
+  * ``annotate(name)`` is a named span (``torch.profiler.record_function``)
+    on the profiler's clock, host and card alike: a kernel launched inside
+    it is the span's in the trace (the launch and the kernel share a
+    correlation id). While no profiler runs it is one shared no-op context,
+    so a span costs a flag test. The frame program's stages
+    (``FrameProgram._stage``: ``frame.<stage>``) and the viewer's
+    ``engine.dispatch`` and ``engine.present`` are such spans; whoever
+    wants them runs ``torch.profiler.profile`` around the frames;
   * ``Counters`` are named, monotonically increasing event counters, with
     the JAX package's names (``textures.decode_failed``, ``assets.skipped``).
 """
@@ -14,29 +18,19 @@ from __future__ import annotations
 
 import collections
 import contextlib
-from pathlib import Path
 from typing import Dict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Profile a block; the trace lands in <log_dir>/trace.json."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    out = Path(log_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(str(out / "trace.json"))
+_NO_SPAN = contextlib.nullcontext()
 
 
 def annotate(name: str):
-    """Named span in the profiler's timeline."""
+    """Named span in the profiler's timeline; the shared no-op context while
+    no profiler runs (``torch.profiler.profile`` sets the flag read here)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 
