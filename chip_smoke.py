@@ -9,7 +9,7 @@
 Needs one CUDA card and nvcc. In order, it:
   1. reports the card (nvidia-smi name and power limit);
   2. builds the CUDA sources of vktf_tpu_torch/csrc (one nvcc each, in
-     parallel; eighteen kernel records) and times the build; builds the
+     parallel; nineteen kernel records) and times the build; builds the
      native host runtime (csrc/host/vktf_native.cpp, g++) and requires it
      to load;
   3. builds the sponza preset with the port's numpy builder and uploads it;
@@ -31,6 +31,11 @@ Needs one CUDA card and nvcc. In order, it:
      events around launches queued behind a sleep kernel, and the
      profiler's kernel time), beside the wrapper; prints what the raster
      kernel stages for the frame's stream (staging_counts);
+  5a. the raster prologue (raster_stream) bit for bit against its plain
+     version and timed beside it and its byte bound, at the sponza's
+     stream and at the 2160p benchmark cell's (benchmark/configs'
+     flythrough, 2,979,744 triangles, built by the benchmark's scene
+     generator);
   5b. holds the depth at every covered sample of that frame (setup and
      raster kernels) to the float64 depth of its triangle through the same
      float32 clip corners, computed in float64 on the card, within the
@@ -180,6 +185,9 @@ SHADE_LAYER_ULP = 4
 FORCED_K2_MISMATCH = 1e-4
 TRANSLUCENT_SHARE_MIN = 0.05  # pixels whose nearest surface is translucent
 FRAMES_IN_FLIGHT = 4
+# records a K = 1 frame launches once each: setup, the raster prologue,
+# raster, shade table, shade (the first entries of main's kernel list)
+K1_RECORDS = 5
 # torch.cuda._sleep cycles holding the stream: ~0.1 s at the H100's clock
 SLEEP_CYCLES = 200_000_000
 
@@ -320,6 +328,60 @@ def raster_bound(stream, height: int, width: int, samples: int, layers: int):
     return bound(nbytes, float(area.double().sum()) * samples * RASTER_OPS)
 
 
+def stream_bound(t: int, t_pad: int) -> tuple[float, str]:
+    """The raster prologue's bytes: each position's perm entry (8 bytes) and
+    each triangle's 24 tri_data and 4 bbox floats read once, 24 + 8 stream
+    floats written a position, and the chunk bboxes."""
+    return bound(t_pad * 8 + t * 28 * 4 + t_pad * 32 * 4 + t_pad // 256 * 16, 0.0)
+
+
+def stream_held(what: str, tri_data, bbox_rows, perm) -> tuple:
+    """Phase 5a at one stream: raster_stream's three outputs bit for bit
+    against raster_stream_plain's, then both timed; prints the kernel's
+    time (CUDA events through the wrapper, and the profiler's kernel time)
+    beside the plain version's and the byte bound. Returns (kernel ms
+    through the wrapper, plain ms, (bound ms, what bounds it))."""
+    from vktf_tpu_torch.ops import raster
+
+    args = (tri_data, bbox_rows, perm)
+    got, want = raster.raster_stream(*args), raster.raster_stream_plain(*args)
+    require(all(g.shape == w.shape for g, w in zip(got, want)),
+            f"raster stream {what}: the plain version's shapes")
+    n_bad = sum(bits_mismatch(g, w)[0] for g, w in zip(got, want))
+    require(n_bad == 0, f"raster stream {what}: bit-equal to the plain version ({n_bad} differ)")
+    del got, want
+    t, t_pad = tri_data.shape[1], perm.shape[0]
+    kernel_ms = cuda_ms(lambda: raster.raster_stream(*args), 50)
+    alone_ms = profiled_ms(lambda: raster.raster_stream(*args), 50, "stream_kernel")
+    plain_ms = cuda_ms(lambda: raster.raster_stream_plain(*args), 20)
+    bound_ms, bound_by = bound_pair = stream_bound(t, t_pad)
+    alone = "not measured" if alone_ms is None else f"{alone_ms:.4f} ms"
+    log(f"raster stream, {what}: {t} triangles, {t_pad // 256} chunks; all three outputs "
+        f"bit-equal to the plain version; kernel {kernel_ms:.4f} ms through the wrapper (CUDA "
+        f"events), {alone} alone (profiler); plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms "
+        f"({bound_by}), {100 * bound_ms / (alone_ms or kernel_ms):.1f}% of it reached")
+    return kernel_ms, plain_ms, bound_pair
+
+
+def stream_2160p(dev) -> None:
+    """Phase 5a at the 2160p benchmark cell's stream: its configuration's
+    scene (benchmark/scene_gen.py, seed 0) at its camera."""
+    from pathlib import Path
+
+    from benchmark import program, scene_gen
+
+    config = json.loads(Path("benchmark/configs/flythrough-2160p-msaa4.json").read_text())
+    t0 = time.perf_counter()
+    scn = program.scene(scene_gen.build(config["scene"], 0), config, dev)
+    cam = config["camera"]
+    scn.camera = program.camera(config, cam["position"], cam["direction"])
+    st = frame_stages(scn)
+    log(f"raster stream, 2160p cell: scene built in {time.perf_counter() - t0:.1f} s")
+    stream_held("2160p cell", st["setup"]["tri_data"], st["setup"]["bbox_rows"], st["perm"])
+    del scn, st
+    torch.cuda.empty_cache()
+
+
 def staging_counts(stream, height: int, width: int, block: int = 16) -> dict:
     """What the raster kernel stages for this stream, counted in torch: per
     16x16 block its hit chunks (chunk bbox overlaps the block) and its
@@ -413,7 +475,7 @@ def shade_bound(tri, sx, sy, table, max_anisotropy: float, num_lights: int, laye
 def frame_stages(scn) -> dict:
     """A scene's frame up to the shade, stage by stage with the kernels, as
     its path gives each stage its inputs: vp, inst_rows, tri_instance,
-    lights, setup, stream, table, the raster's ids, and the pixel-rate
+    lights, setup, perm, stream, table, the raster's ids, and the pixel-rate
     shade's tri and frac (kernel_ab.py uses it too)."""
     from vktf_tpu_torch.ops import pipeline, raster, setup_kernel, shade_table
 
@@ -423,17 +485,16 @@ def frame_stages(scn) -> dict:
     inst_rows, tri_instance, lights = pipeline.scene_update(rs, scn.meta)
     setup = setup_kernel.setup_pack(rs.tri_corner, inst_rows, tri_instance, vp, config.width,
                                     config.height)
-    stream = raster.raster_stream(
-        setup["tri_data"], setup["bbox_rows"],
-        raster.stream_perm(setup["bbox_rows"], setup["valid"], chunk=config.pallas_chunk),
-        chunk=config.pallas_chunk)
+    perm = raster.stream_perm(setup["bbox_rows"], setup["valid"], chunk=config.pallas_chunk)
+    stream = raster.raster_stream(setup["tri_data"], setup["bbox_rows"], perm,
+                                  chunk=config.pallas_chunk)
     ids, depth = raster.rasterize(*stream, config.padded_height, config.padded_width,
                                   config.msaa_samples, scn.frame_program.layers)
     table = shade_table.build_shade_table(setup["edge9"], rs.tri_corner, rs.tri_static_cols,
                                           setup["anchor2"], inst_rows, tri_instance)
     tri, frac = pipeline.pixel_winner(ids, depth)
     return dict(vp=vp, inst_rows=inst_rows, tri_instance=tri_instance, lights=lights,
-                setup=setup, stream=stream, table=table, ids=ids, tri=tri, frac=frac)
+                setup=setup, perm=perm, stream=stream, table=table, ids=ids, tri=tri, frac=frac)
 
 
 def scene_leaves(rs) -> dict:
@@ -464,8 +525,8 @@ def mesh_ranks(cases, inputs, frames: int, flight: int) -> dict:
     from vktf_tpu_torch.scene.scene import Scene
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    kernels = [setup_kernel.KERNEL, raster.KERNEL, raster.KERNEL_LAYERS, shade_table.KERNEL,
-               *shade_kernel.KERNELS]
+    kernels = [setup_kernel.KERNEL, raster.KERNEL_STREAM, raster.KERNEL, raster.KERNEL_LAYERS,
+               shade_table.KERNEL, *shade_kernel.KERNELS]
     out = {}
     for tag, key, gp, sp, overrides in cases:
         path, meta, (width, height) = inputs[key]
@@ -567,9 +628,9 @@ def mesh_spawn(label: str, scenes: dict, size, backend: str, flight: int) -> col
             json.dumps({k: round(v, 4) for k, v in got["stages"].items()}))
         require(same, f"mesh {tag} ({label}): frame == the single-device frame")
         for launched in got["launches"]:
-            require(len(set(launched.values())) == 1 and len(launched) == 4,
-                    f"mesh {tag}: setup, raster, shade table and shade once a frame on every "
-                    f"rank: {launched}")
+            require(len(set(launched.values())) == 1 and len(launched) == 5,
+                    f"mesh {tag}: setup, the raster prologue, raster, shade table and shade "
+                    f"once a frame on every rank: {launched}")
             if rate == "sample":
                 require(set(launched) & shade_records <= layer_records,
                         f"mesh {tag}: the layer record, never a resolve record: {launched}")
@@ -815,9 +876,10 @@ def viewer_phase(dev, config, camera, meta, still, sponza_files, box_files, asse
         f"presented in {main_s:.3f} s of host time (load included); launches in the path:",
         json.dumps(viewer_launches))
     require(n_frames == 33, "the fly-through presents 33 frames")
-    require(all(viewer_launches[k.name] == n_frames for k in kernels[:4])
-            and not any(viewer_launches[k.name] for k in kernels[4:]),
-            "setup, raster, shade table and shade ran once per presented frame, nothing else")
+    require(all(viewer_launches[k.name] == n_frames for k in kernels[:K1_RECORDS])
+            and not any(viewer_launches[k.name] for k in kernels[K1_RECORDS:]),
+            "setup, the raster prologue, raster, shade table and shade ran once per presented "
+            "frame, nothing else")
     log("[viewer] game.main load (host s):",
         json.dumps({k: round(v, 4) for k, v in viewer_stats["load"].items()}))
     log(f"[viewer] FrameTimer over {n_frames} frames: p50 {viewer_stats['frame_ms_p50']:.4f} ms, "
@@ -1008,11 +1070,12 @@ def oracle_fixtures(dev, kernels, directory) -> None:
             f"{ORACLE_OUTLIER_STEP} steps apart {outliers:.4f} (budget: mean <= "
             f"{ORACLE_MAX_MEAN}, share <= {ORACLE_MAX_OUTLIERS}); oracle lit {lit:.3f}")
         require(lit > 0.2, f"oracle {tag}: the fixture is in view")
-        setup, raster_1, table, shade_1, raster_k, *shade_others = kernels
-        require(all(launches.get(k.name) for k in (setup, table))
+        setup, stream, raster_1, table, shade_1, raster_k, *shade_others = kernels
+        require(all(launches.get(k.name) for k in (setup, stream, table))
                 and any(launches.get(k.name) for k in (raster_1, raster_k))
                 and any(launches.get(k.name) for k in (shade_1, *shade_others)),
-                f"oracle {tag}: setup, a raster, shade table and a shade record ran on the card")
+                f"oracle {tag}: setup, the raster prologue, a raster, shade table and a shade "
+                "record ran on the card")
         require(mean <= ORACLE_MAX_MEAN and outliers <= ORACLE_MAX_OUTLIERS,
                 f"oracle {tag}: the card's frame within the oracle's budget")
 
@@ -1116,7 +1179,7 @@ def host_phase(dev, config, camera, meta, still, zstd_files, export_zstd_s,
         k.launches = 0
     frame = loaded.render_still()
     launches = {k.name: k.launches for k in kernels if k.launches}
-    require(all(launches.get(k.name) == 1 for k in kernels[:4]),
+    require(all(launches.get(k.name) == 1 for k in kernels[:K1_RECORDS]),
             f"the ZSTD sponza's frame ran the K = 1 kernels: {launches}")
     require(np.array_equal(frame, still),
             "the ZSTD sponza renders phase 4's in-memory frame bit for bit")
@@ -1149,7 +1212,8 @@ def four_cards(args) -> int:
     card = card_line()
     log("card:", card, "|", torch.cuda.get_device_name(0), "| cards",
         torch.cuda.device_count(), "| torch", torch.__version__, "cuda", torch.version.cuda)
-    kernels = [setup_kernel.KERNEL, raster.KERNEL, shade_table.KERNEL, *shade_kernel.KERNELS]
+    kernels = [setup_kernel.KERNEL, raster.KERNEL_STREAM, raster.KERNEL, shade_table.KERNEL,
+               *shade_kernel.KERNELS]
     t0 = time.perf_counter()
     _cuda.build(sorted({k.source for k in kernels}))
     log(f"build: {time.perf_counter() - t0:.1f} s wall")
@@ -1238,9 +1302,9 @@ def main() -> int:
     log("[current card] launches on a card that is not the current one (a Scene on cuda:1 "
         "with card 0 current; Engine() after torch.cuda.set_device(1)): not run here, it "
         "needs two cards and this run uses one; --four-cards runs it")
-    # the K = 1 path's four, then the K-layer raster and every other shade
-    kernels = [setup_kernel.KERNEL, raster.KERNEL, shade_table.KERNEL, shade_kernel.KERNEL,
-               raster.KERNEL_LAYERS, *shade_kernel.KERNELS[1:]]
+    # the K = 1 path's K1_RECORDS, then the K-layer raster and every other shade
+    kernels = [setup_kernel.KERNEL, raster.KERNEL_STREAM, raster.KERNEL, shade_table.KERNEL,
+               shade_kernel.KERNEL, raster.KERNEL_LAYERS, *shade_kernel.KERNELS[1:]]
     sources = list(dict.fromkeys(k.source for k in kernels))
 
     # ---- 2. build -------------------------------------------------------
@@ -1419,10 +1483,10 @@ def main() -> int:
 
     # ---- 4. the opaque path (K = 1) through Scene -------------------------
     still, launches = drive(scene, "opaque")
-    require(all(launches[k.name] > 0 for k in kernels[:4]),
+    require(all(launches[k.name] > 0 for k in kernels[:K1_RECORDS]),
             "every K = 1 kernel ran in the opaque path")
     behind_a_busy_stream(scene, "opaque", still)
-    path_launches = {k.name: launches[k.name] for k in kernels[:4]}
+    path_launches = {k.name: launches[k.name] for k in kernels[:K1_RECORDS]}
 
     # ---- 5. each kernel against its plain version, main-path shapes -----
     rs = scene.render_scene
@@ -1508,6 +1572,12 @@ def main() -> int:
     record(raster.KERNEL, d_err, cuda_ms(lambda: raster.rasterize(*r_args), 10),
            cuda_ms(lambda: raster.rasterize_plain(*r_args), 2),
            raster_bound(stream, ph, pw, config.msaa_samples, 1))
+
+    # ---- 5a. the raster prologue against its plain version ---------------
+    record(raster.KERNEL_STREAM, 0.0,
+           *stream_held("sponza", setup["tri_data"], setup["bbox_rows"], perm))
+    if not args.small:
+        stream_2160p(dev)
 
     # ---- 5b. the covered samples' depth against float64 -----------------
     depth_against_float64(rs, inst_rows, tri_instance, vp, setup,
@@ -1866,9 +1936,10 @@ def main() -> int:
             f"{scene_p.frame_program.layers}; build+flatten+upload "
             f"{time.perf_counter() - t0:.1f} s")
         _still_p, launches_p = drive(scene_p, preset, min_lit=0.05)
-        require(all(launches_p[k.name] == launches_p["setup"] > 0 for k in kernels[:4])
-                and not any(launches_p[k.name] for k in kernels[4:]),
-                f"{preset}: setup, raster, shade table and shade once a frame, nothing else")
+        require(all(launches_p[k.name] == launches_p["setup"] > 0 for k in kernels[:K1_RECORDS])
+                and not any(launches_p[k.name] for k in kernels[K1_RECORDS:]),
+                f"{preset}: setup, the raster prologue, raster, shade table and shade once a "
+                "frame, nothing else")
         cam_s = Camera(*pose, ViewFrustumParams(np.radians(45.0), 2.0, 0.1, 1.0e6))
         small_p = RenderConfig(width=256, height=128, msaa_samples=msaa_p)
         fd = np.abs(Scene(assets_p, small_p, camera=cam_s, device=dev).render_still()
@@ -1916,7 +1987,8 @@ def main() -> int:
         still_e, launches_e = drive(scene_e, tag)
         require(np.array_equal(still_e, still),
                 f"{tag}: render_still is the exact frame bit for bit")
-        require(all(launches_e[k.name] == launches_e["setup"] > 0 for k in kernels[:4]),
+        require(all(launches_e[k.name] == launches_e["setup"] > 0
+                    for k in kernels[:K1_RECORDS]),
                 f"{tag}: the K = 1 kernels once a frame")
         copy_ms, copy_bytes = flight_with_copy(scene_e, n_copy)
         log(f"[{tag}] encoded frame == CPU encode of the card's exact frame (bit for bit); still "
@@ -2006,7 +2078,8 @@ def main() -> int:
         still_n, launches_n = drive(Scene.from_render_scene(rs, meta, config, camera,
                                                             mesh=mesh1), "mesh_nccl_1x1")
     require(np.array_equal(still_n, still), "the NCCL 1x1 frame == phase 4's frame")
-    require(all(launches_n[k.name] > 0 for k in kernels[:4]), "the 1x1 mesh path's kernels ran")
+    require(all(launches_n[k.name] > 0 for k in kernels[:K1_RECORDS]),
+            "the 1x1 mesh path's kernels ran")
     mesh_launches.update({k: v for k, v in launches_n.items() if v})
     log(f"[mesh] NCCL 1x1 frame == phase 4's frame bit for bit; with {FRAMES_IN_FLIGHT} frames "
         f"in flight {flight_by_path['mesh_nccl_1x1']:.4f} ms per frame against phase 4's "

@@ -7,12 +7,13 @@ variant's), unpacked under the ignored ``vktf_tpu_torch/_build/``::
 
     git archive <commit> vktf_tpu_torch/csrc | tar -x -C DIR --strip-components=2
 
-Every source whose text or headers differ from a DIR's is built from both
-directories (``_cuda.build``), and each kernel record of such a source is
-timed at its chip_smoke.py path's inputs (``chip_smoke.frame_stages``): the
-sponza preset at 1920x1080 4x MSAA, opaque, translucent (K = 8), the
-mixed-sampler sponza and its translucent form, the attrs boundary's rows
-(only the scenes the differing records read are built).
+Every source whose text or headers differ from a DIR's (one the DIR does
+not have is left out) is built from both directories (``_cuda.build``),
+and each kernel record of such a source is timed at its chip_smoke.py
+path's inputs (``chip_smoke.frame_stages``): the sponza preset at
+1920x1080 4x MSAA, opaque, translucent (K = 8), the mixed-sampler sponza
+and its translucent form, the attrs boundary's rows (only the scenes the
+differing records read are built).
 Each new output must equal the parent's bit for bit. Each record is timed
 with CUDA events through its wrapper, in turns on one card: parent, new,
 new, parent. Prints the card and one JSON line per record; ``--json PATH``
@@ -112,7 +113,7 @@ def c_entries(opaque, kind: str):
             "shade_table.cu": (table_call, lambda lib: table_fn(lib, fixed_table))}
 
 
-SOURCES = ("setup.cu", "raster.cu", "shade_table.cu", "shade.cu")
+SOURCES = ("setup.cu", "raster_stream.cu", "raster.cu", "shade_table.cu", "shade.cu")
 
 
 def records(dev, sources):
@@ -148,6 +149,8 @@ def records(dev, sources):
         (setup_kernel.KERNEL,
          lambda: setup_kernel.setup_pack(rs.tri_corner, opaque["inst_rows"],
                                          opaque["tri_instance"], opaque["vp"], width, height)),
+        (raster.KERNEL_STREAM,
+         lambda: raster.raster_stream(setup["tri_data"], setup["bbox_rows"], opaque["perm"])),
         (raster.KERNEL, lambda: raster.rasterize(*opaque["stream"], ph, pw, ms)),
         (shade_table.KERNEL,
          lambda: shade_table.build_shade_table(setup["edge9"], rs.tri_corner,
@@ -212,7 +215,9 @@ def main() -> int:
     card = chip_smoke.card_line()
     print("card:", card, flush=True)
     parents = {str(d): d.resolve() for d in args.parent}
-    changed = {name: sorted(s for s in SOURCES if _cuda._lib_path(s) != _cuda._lib_path(s, d))
+    # a source the parent does not have yet is not compared
+    changed = {name: sorted(s for s in SOURCES if (d / s).exists()
+                            and _cuda._lib_path(s) != _cuda._lib_path(s, d))
                for name, d in parents.items()}
     print("sources that differ from each parent's:", changed, flush=True)
     every = {s for c in changed.values() for s in c}

@@ -16,8 +16,10 @@ source, tap count and the attrs boundary; a plane whose textures hold
 every byte value in every channel (the decode tables); streams whose
 chunks overlap a block with few touching triangles, chunks whose triangles
 all touch one block (full compacted lists), and a 300-deep equal-depth
-stack shuffled across chunks; shade tables of random rows at 1, 129 and
-896 triangles and over 1,000 instances; setup with and without an id row;
+stack shuffled across chunks; the raster prologue's streams (the small
+sponza's, ragged and single-chunk streams, padding and invalid triangles
+inside groups) against its plain version; shade tables of random rows at
+1, 129 and 896 triangles and over 1,000 instances; setup with and without an id row;
 frames enqueued behind a sleeping stream, through Scene and through
 Engine.render; the Engine's pinned host ring over a moving camera; the
 viewer (game.main) on a small file written by the port's exporter, on the
@@ -303,6 +305,12 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
     for layers in (0, 9):  # the kernel keeps 1..8 layers
         with pytest.raises(ValueError):
             raster.rasterize(*stream, tp.HEIGHT, tp.WIDTH, 4, layers)
+    perm = raster.stream_perm(setup["bbox_rows"], setup["valid"])
+    for bad in (perm.int(), perm.cpu(), perm[:-256]):  # not int64; on the host; too short
+        with pytest.raises(ValueError):
+            raster.raster_stream(setup["tri_data"], setup["bbox_rows"], bad)
+    with pytest.raises(ValueError):  # non-contiguous rows
+        raster.raster_stream(setup["tri_data"].T.contiguous().T, setup["bbox_rows"], perm)
 
 
 @pytest.mark.parametrize("name", ["sponza_small", "sponza_small_blend"])
@@ -567,6 +575,66 @@ def test_raster_equal_depth_stack_across_chunks(dev, msaa):
                                              perm=rng.permutation(t_pad))
     assert (ids[:, :, 10, 20] // 2 == torch.arange(8, device=dev)[:, None]).all()
     assert bool((depth[:, :, 10, 20] == depth[0, 0, 10, 20]).all())
+
+
+def _setup_like_rows(dev, t, seed, invalid_share):
+    """(tri_data, bbox_rows, valid) shaped as setup_pack writes them: random
+    rows, integer bboxes, slim flags 0 or 1; an invalid triangle has id -1,
+    slim 1 and the empty bbox, as setup_pack marks it."""
+    rng = np.random.default_rng(seed)
+    tri_data = rng.standard_normal((24, t)).astype(np.float32)
+    valid = rng.random(t) >= invalid_share
+    tri_data[15] = np.where(valid, np.arange(t), -1.0)
+    tri_data[19] = np.where(valid, rng.integers(0, 2, t), 1.0)
+    x0, y0 = rng.integers(0, 200, t), rng.integers(0, 100, t)
+    big = 2.0 ** 30
+    bbox_rows = np.stack([np.where(valid, x0, big), np.where(valid, y0, big),
+                          np.where(valid, x0 + rng.integers(1, 20, t), -big),
+                          np.where(valid, y0 + rng.integers(1, 20, t), -big)]).astype(np.float32)
+    return (torch.from_numpy(tri_data).to(dev), torch.from_numpy(bbox_rows).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+@pytest.mark.parametrize("case", ["sponza_small", "ragged", "padding_mid_chunk",
+                                  "invalid_in_groups", "one_chunk"])
+def test_raster_stream_kernel(dev, case):
+    """The prologue kernel's three outputs against the plain version's on
+    the same inputs, bit for bit, one launch a call: the small sponza's
+    setup in its stream order; 1,000 triangles (padding in the last chunk);
+    a shuffled perm over 1,000 triangles (padding columns inside chunks and
+    groups); a third of the triangles invalid and streamed in draw order
+    (invalid ones inside groups, mixing slim flags and bboxes); exactly one
+    chunk of 256 in a shuffled order."""
+    from vktf_tpu_torch.ops import raster
+
+    rng = np.random.default_rng(11)
+    if case == "sponza_small":
+        setup = _stages(dev, 4)[4]
+        tri_data, bbox_rows = setup["tri_data"], setup["bbox_rows"]
+        perm = raster.stream_perm(bbox_rows, setup["valid"])
+    else:
+        t = {"ragged": 1000, "padding_mid_chunk": 1000, "invalid_in_groups": 1500,
+             "one_chunk": 256}[case]
+        share = 1 / 3 if case == "invalid_in_groups" else 0.05
+        tri_data, bbox_rows, valid = _setup_like_rows(dev, t, 12, share)
+        t_pad = -(-t // 256) * 256
+        if case == "ragged":
+            perm = raster.stream_perm(bbox_rows, valid)
+        elif case == "invalid_in_groups":
+            perm = torch.arange(t_pad, device=dev)
+        else:  # padding columns anywhere in the stream
+            perm = torch.as_tensor(rng.permutation(t_pad), device=dev)
+    before = raster.KERNEL_STREAM.launches
+    got = raster.raster_stream(tri_data, bbox_rows, perm)
+    assert raster.KERNEL_STREAM.launches == before + 1
+    want = raster.raster_stream_plain(tri_data, bbox_rows, perm)
+    for name, g, w in zip(("tri_data", "tri_bbox", "chunk_bbox"), got, want):
+        assert g.shape == w.shape, name
+        tp.assert_bits_equal(g.cpu().numpy(), w.cpu().numpy(), name)
+    if case in ("padding_mid_chunk", "invalid_in_groups"):
+        # some group mixes padding or invalid triangles with valid ones
+        ids = got[0][15].reshape(-1, 8)
+        assert bool(((ids < 0).any(1) & (ids >= 0).any(1)).any())
 
 
 class _FixedDeltaTime:

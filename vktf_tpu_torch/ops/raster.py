@@ -50,6 +50,17 @@ Both take a band offset ``y_offset`` (``rasterize_pallas``'s, for the
 multi-device frame, ``parallel/tiles.py``): the output is the frame's rows
 y_offset .. y_offset + height, every test on global rows. Times on the card, against the previous design and the bound: PERF.md
 (kernel_ab.py, chip_smoke.py).
+
+The prologue (``raster_stream``, ``csrc/raster_stream.cu``) moves bytes:
+each stream position's 28 setup floats gathered from its source column,
+32 stream floats written. Its kernel runs one 256-thread block per chunk,
+one thread per stream position: the thread loads its column's rows (a
+position past the triangles is padding and loads nothing), the 8 lanes of
+a group take the slim flag and the group bbox by warp shuffles, the warps
+meet in shared memory for the chunk bbox, and every row is stored
+coalesced, so no padded copy is made and nothing is written to be read
+back. The plain version (``raster_stream_plain``) pads, gathers and
+reduces op by op, as the TPU prologue does; both give the same bits.
 """
 
 from __future__ import annotations
@@ -76,6 +87,14 @@ _cuda.declare("raster.cu", "vktf_raster",
               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
 _cuda.declare("raster.cu", "vktf_raster_band",
               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+# the prologue, launched once a frame before the raster kernel
+KERNEL_STREAM = _cuda.Kernel(
+    "raster_stream", "raster_stream.cu",
+    "vktf_tpu/ops/raster_pallas.py:1048-1092 (rasterize_pallas's prologue: the perm gather, "
+    "the group slim flag, the group rows and the chunk bboxes)",
+)
+_cuda.declare("raster_stream.cu", "vktf_raster_stream",
+              [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
 
 # triangles per group: the slim flag is their AND; tri_bbox rows 4..7 hold
 # the group bbox, the TPU kernel's mid-level skip (the CUDA kernel lists
@@ -117,18 +136,48 @@ def stream_perm(bbox_rows, valid, chunk: int = 256, granularity: int = 16):
 
 def raster_stream(tri_data, bbox_rows, perm, chunk: int = 256,
                   group_size: int = GROUP_SIZE):
-    """The raster prologue: pad the setup rows to whole chunks (padding is
-    invalid: id -1, slim 1, empty bbox), put them in stream order, reduce
-    row 19 to a per-GROUP slim flag (AND over the group's members), and
-    build the group bbox rows and the chunk bboxes.
+    """The raster prologue: the setup rows in stream order, padded to whole
+    chunks (padding is invalid: id -1, slim 1, empty bbox), row 19 reduced
+    to a per-GROUP slim flag (AND over the group's members), and the group
+    bbox rows and the chunk bboxes.
 
-    Returns (tri_data (24, t_pad), tri_bbox (8, t_pad): rows 0..3 the
-    triangle bbox, 4..7 its group's bbox, chunk_bbox (4, n_chunks))."""
+    tri_data (24, t) and bbox_rows (4, t) f32, perm (t_pad,) the stream
+    order (stream_perm): entries at or past t are chunk padding. Returns
+    (tri_data (24, t_pad), tri_bbox (8, t_pad): rows 0..3 the triangle
+    bbox, 4..7 its group's bbox, chunk_bbox (4, n_chunks)). CPU tensors
+    take the plain version; CUDA tensors launch the kernel (256-triangle
+    chunks, groups of 8), which writes the same bits in one pass."""
     t = tri_data.shape[1]
     t_pad = perm.shape[0]
     if t_pad % chunk or t_pad < t:
         raise ValueError(f"perm length {t_pad} must cover {t} triangles in "
                          f"whole chunks of {chunk}")
+    if not tri_data.is_cuda:
+        return raster_stream_plain(tri_data, bbox_rows, perm, chunk, group_size)
+    if (chunk, group_size) != (256, GROUP_SIZE):
+        raise ValueError(f"the CUDA prologue builds 256-triangle chunks of {GROUP_SIZE}-"
+                         f"triangle groups, got {chunk} and {group_size}")
+    if not 0 < t_pad < 1 << 24:
+        raise ValueError(f"the CUDA prologue takes 1 to 2^24 - 1 stream positions, got {t_pad}")
+    dev = tri_data.device
+    _cuda.require(tri_data, "tri_data", torch.float32, (24, t))
+    _cuda.require(bbox_rows, "bbox_rows", torch.float32, (4, t), dev)
+    _cuda.require(perm, "perm", torch.int64, (t_pad,), dev)
+    out_data = torch.empty((24, t_pad), dtype=torch.float32, device=dev)
+    tri_bbox = torch.empty((8, t_pad), dtype=torch.float32, device=dev)
+    chunk_bbox = torch.empty((4, t_pad // chunk), dtype=torch.float32, device=dev)
+    _cuda.launch(KERNEL_STREAM, "vktf_raster_stream",
+                 (_cuda.ptr(tri_data), _cuda.ptr(bbox_rows), _cuda.ptr(perm), t, t_pad,
+                  _cuda.ptr(out_data), _cuda.ptr(tri_bbox), _cuda.ptr(chunk_bbox),
+                  _cuda.stream_of(tri_data)), "raster stream kernel", dev)
+    return out_data, tri_bbox, chunk_bbox
+
+
+def raster_stream_plain(tri_data, bbox_rows, perm, chunk: int = 256,
+                        group_size: int = GROUP_SIZE):
+    """Plain-torch version: pad, gather, then each reduction in its own op."""
+    t = tri_data.shape[1]
+    t_pad = perm.shape[0]
     dev = tri_data.device
     if t_pad > t:
         pad = torch.zeros((tri_data.shape[0], t_pad - t), dtype=tri_data.dtype,
