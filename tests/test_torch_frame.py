@@ -13,9 +13,9 @@ winner where two surfaces meet at nearly equal depth.
 Also at 8x MSAA and at 200x120 (not a whole number of tiles), the frames
 the earlier tests did not cover.
 
-Also here: the duck and helmet presets' frames against the JAX
-program's, the port imports neither jax nor the JAX package, and its
-configuration raises on every value it cannot honour.
+Also here: the port imports neither jax nor the JAX package, and its
+configuration raises on every value it cannot honour. The duck and
+helmet presets' frames are tests/test_torch_frame_presets.py's.
 """
 
 import subprocess
@@ -31,13 +31,6 @@ import torch_parity as tp
 tp.limit_threads()
 
 REPO = Path(__file__).resolve().parent.parent
-
-
-def _jax_frame(name: str):
-    scene, _meta = tp.jax_scene(name)
-    jcam, _ = tp.cameras()
-    prog = tp.jax_program(name, 4)
-    return np.asarray(prog(scene, jcam.view_projection_transform, jcam.position))
 
 
 # Pixels of the 256x128 4x frame where the JAX package's pixel winner (its
@@ -58,12 +51,6 @@ def _assert_frames_close(got, want):
                            tp.checked_jax_wrong(JAX_WRONG, tp.WIDTH, tp.HEIGHT, 4))
 
 
-def _port_config():
-    from vktf_tpu_torch.config import RenderConfig
-
-    return RenderConfig(width=tp.WIDTH, height=tp.HEIGHT, msaa_samples=4)
-
-
 def test_frame_matches_jax_on_the_jax_scene():
     """Both packages render the JAX package's flattened scene."""
     from vktf_tpu_torch.scene.flatten import SceneMeta, scene_from_numpy
@@ -76,8 +63,8 @@ def test_frame_matches_jax_on_the_jax_scene():
     _jcam, tcam = tp.cameras()
     scene = Scene.from_render_scene(
         scene_from_numpy(tp.jax_leaves("sponza_small"), "cpu"), meta,
-        _port_config(), camera=tcam)
-    want = _jax_frame("sponza_small")
+        tp.port_config(), camera=tcam)
+    want = tp.jax_frame("sponza_small")
     assert (want.max(axis=0) > 0).mean() > 0.5
     _assert_frames_close(scene.render_still(), want)
 
@@ -88,9 +75,9 @@ def test_scene_from_preset_matches_jax():
     from vktf_tpu_torch.scene.scene import Scene
 
     _jcam, tcam = tp.cameras()
-    scene = Scene(tp.torch_assets("sponza_small"), _port_config(),
+    scene = Scene(tp.torch_assets("sponza_small"), tp.port_config(),
                   camera=tcam, device="cpu")
-    _assert_frames_close(scene.render_still(), _jax_frame("sponza_small"))
+    _assert_frames_close(scene.render_still(), tp.jax_frame("sponza_small"))
 
 
 # as JAX_WRONG, for frames off the 4x, whole-tile grid the tests above
@@ -133,27 +120,6 @@ def test_frame_matches_jax_off_the_tested_grid(width, height, msaa):
                            tp.checked_jax_wrong(listed, width, height, msaa))
 
 
-@pytest.mark.parametrize("preset", ["duck", "helmet"])
-def test_preset_frame_matches_jax(preset):
-    """The duck (bench.py's msaa 1) and helmet (msaa 4, a point light)
-    presets at 96x64 from bench.py's camera of each, through the port's
-    Scene, against the JAX production frame program on the JAX preset."""
-    from vktf_tpu_torch.config import RenderConfig
-    from vktf_tpu_torch.scene.scene import Scene
-
-    msaa = {"duck": 1, "helmet": 4}[preset]
-    pose = {"duck": ((0.0, 0.5, 2.0), (0.0, -0.2, -1.0)),
-            "helmet": ((0.0, 0.4, 2.4), (0.0, -0.1, -1.0))}[preset]
-    jcam, tcam = tp.cameras(96, 64, pose)
-    scene, _meta = tp.jax_scene(preset)
-    prog = tp.jax_program(preset, msaa, width=96, height=64)
-    want = np.asarray(prog(scene, jcam.view_projection_transform, jcam.position))
-    got = Scene(tp.torch_assets(preset), RenderConfig(width=96, height=64, msaa_samples=msaa),
-                camera=tcam, device="cpu").render_still()
-    assert (want.max(axis=0) > 0).mean() > 0.1  # the object fills 13-15% of the view
-    tp.assert_frames_close(got, want, (3, 64, 96))
-
-
 def test_render_async_is_a_device_tensor():
     import torch
 
@@ -182,7 +148,7 @@ def test_plain_versions_count_no_launches():
         for texture in ({}, {"aniso_taps": 2}, {"shade_fused_pool": False},
                         {"shade_attrs_boundary": True}):
             scene = Scene(tp.torch_assets("box"),
-                          _port_config().replace(peel_layers=layers, **texture),
+                          tp.port_config().replace(peel_layers=layers, **texture),
                           device="cpu")
             scene.render_still()
     assert [k.launches for k in kernels] == before
@@ -265,7 +231,7 @@ def test_frame_program_raises_on_unported_scenes():
     base = dict(level_slices=((0, 1),), num_lights=0, num_instances=1,
                 num_triangles=1, num_vertices=3)
     for extra in ({"mixed_samplers": True}, {"mirror_wrap": True}):
-        FrameProgram(SceneMeta(**base, **extra), _port_config())
+        FrameProgram(SceneMeta(**base, **extra), tp.port_config())
     for layers in (0, 9):
         with pytest.raises(ValueError):
-            FrameProgram(SceneMeta(**base, peel_layers=layers), _port_config())
+            FrameProgram(SceneMeta(**base, peel_layers=layers), tp.port_config())

@@ -165,8 +165,8 @@ def rendered(scenes, tmp_path_factory):
     game_argv = [box, "--width", "64", "--height", "48", "--msaa", "4", "--frames", "3",
                  "--display", "off"]
     out = launch.run(_four_ranks, 4, scenes, box, engine_config, game_argv,
-                     str(root / "mesh_frames"), device="cpu")
-    out.update(launch.run(_two_ranks, 2, scenes, device="cpu"))
+                     str(root / "mesh_frames"), device="cpu", timeout_s=300)
+    out.update(launch.run(_two_ranks, 2, scenes, device="cpu", timeout_s=300))
     out["engine_single"] = _engine_frames(box, engine_config)
     out["game_single"] = _game_frames(game_argv, root / "frames")
     return out

@@ -99,7 +99,7 @@ def port():
     from vktf_tpu_torch.parallel import launch
 
     return launch.run(_port_ranks, 4, *_jax_scene_leaves(), *_jax_scene_leaves(MIXED),
-                      device="cpu")
+                      device="cpu", timeout_s=300)
 
 
 @pytest.fixture(scope="module")

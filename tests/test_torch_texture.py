@@ -8,12 +8,12 @@ of those stages hold them to the JAX ones).
   against ``shade_addr_chunk`` + ``shade_final_chunk(fused_pool=True,
   aniso_taps=N, interpret=True)`` on every 32nd pixel of the small
   courtyard (1,024 pixels, one block of the JAX kernel, which runs in
-  interpret mode).
+  interpret mode): tests/test_torch_texture_taps.py.
 * Classic: ``shade_resolve(texels="classic")`` against
   ``shade_final_chunk(fused_pool=False)`` on a mirror-wrap plane whose uvs
   run over [-0.75, 1.75].
-* Resolved pixels: one u8 step on at most STEP_SHARE of the pixels. The
-  two sides evaluate pow, log2 and rsqrt with different libraries
+* Resolved pixels: one u8 step on at most tp.PACKED_STEP_SHARE of the
+  pixels. The two sides evaluate pow, log2 and rsqrt with different libraries
   (test_torch_shade.py), and an ULP can carry a value across a u8 rounding
   boundary or move a knife-edge floor.
 * Classic equals fused bit for bit, frames at K = 1 and K = 2, on the
@@ -47,7 +47,6 @@ import torch_parity as tp
 
 tp.limit_threads()
 
-STEP_SHARE = 1e-3
 RGB_ULP = 64
 RGB_ULP_SHARE = 1e-2
 RGB_ULP_MAX = 1024
@@ -58,55 +57,16 @@ MIRROR_PLANE = dict(tp.MIXED_PLANE, samplers=(MIRROR,) * 3)
 PLANE_W, PLANE_H = 96, 64
 
 
-def _config(**kw):
-    from vktf_tpu_torch.config import RenderConfig
-
-    return RenderConfig(**{"width": tp.WIDTH, "height": tp.HEIGHT, "msaa_samples": 4, **kw})
-
-
-@functools.lru_cache(maxsize=None)
-def _sponza_stages():
-    """The small courtyard (the JAX package's scene) through the port's
-    stages, as numpy."""
-    from vktf_tpu_torch.scene.flatten import scene_from_numpy
-    from vktf_tpu_torch.scene.scene import Scene
-
-    _scene, jmeta = tp.jax_scene("sponza_small")
-    _jcam, tcam = tp.cameras()
-    scene = Scene.from_render_scene(scene_from_numpy(tp.jax_leaves("sponza_small"), "cpu"),
-                                    tp.port_meta(jmeta), _config(), camera=tcam)
-    return {k: v.numpy() for k, v in tp.port_stages(scene).items()}
-
-
 @functools.lru_cache(maxsize=None)
 def _plane_stages(which: str):
     from vktf_tpu_torch.scene.scene import Scene
 
     spec = {"mirror": MIRROR_PLANE, "mixed": tp.MIXED_PLANE}[which]
     scene = Scene([tp.plane_asset(**spec)],
-                  _config(width=PLANE_W, height=PLANE_H, tile_shape=(32, 64)),
+                  tp.port_config(width=PLANE_W, height=PLANE_H, tile_shape=(32, 64)),
                   camera=tp.plane_camera(spec, PLANE_W, PLANE_H), device="cpu")
     assert scene.meta.mirror_wrap and scene.meta.mixed_samplers == (which == "mixed")
     return {k: v.numpy() for k, v in tp.port_stages(scene).items()}
-
-
-def _port(st, *names):
-    return [torch.from_numpy(np.ascontiguousarray(st[n])) for n in names]
-
-
-def _u8_step(got, want):
-    step = np.zeros(got.shape, np.int64)
-    for c in range(3):
-        step = np.maximum(step, np.abs(((got >> (8 * c)) & 0xFF).astype(np.int64)
-                                       - ((want >> (8 * c)) & 0xFF)))
-    return step
-
-
-def _assert_packed_close(got, want):
-    assert got.shape == want.shape
-    step = _u8_step(got, want)
-    assert step.max() <= 1, int(step.max())
-    assert (step > 0).mean() <= STEP_SHARE, float((step > 0).mean())
 
 
 def _assert_layer_close(rgb, alpha, want_rgb, want_alpha, covered):
@@ -119,43 +79,12 @@ def _assert_layer_close(rgb, alpha, want_rgb, want_alpha, covered):
     assert (ulp > RGB_ULP).mean() <= RGB_ULP_SHARE, float((ulp > RGB_ULP).mean())
 
 
-def _jax_args(st):
-    return (st["tri"], st["sx"], st["sy"], tp.pack_table(st["table"]), tp.pool_u16(st["pool"]),
-            st["cam"], st["lights"])
-
-
-@pytest.mark.parametrize("taps", [2, 4, 8])
-def test_multi_tap_matches_jax_kernel(taps):
-    from vktf_tpu.ops.shade_kernel import shade_addr_chunk, shade_final_chunk
-    from vktf_tpu_torch.ops.shade_kernel import shade_resolve
-
-    full = _sponza_stages()
-    st = dict(full, **{k: full[k][::32] for k in ("tri", "frac", "sx", "sy")})
-    ma = _config().max_anisotropy
-    background = np.zeros(4, np.float32)
-
-    @jax.jit
-    def reference(tri, sx, sy, table, pool, cam, lights, frac):
-        trow, r0, r1 = shade_addr_chunk(tri, sx, sy, table, ma, fused_pool=True, aniso_taps=taps)
-        return shade_final_chunk(trow, r0, r1, tri, sx, sy, pool, cam, lights,
-                                 max_anisotropy=ma, interpret=True, frac=frac,
-                                 background=background, fused_pool=True, aniso_taps=taps)
-
-    want = np.asarray(reference(*_jax_args(st), st["frac"]))
-    args = _port(st, "tri", "sx", "sy", "frac", "table", "pool", "cam", "lights", "bg")
-    got = shade_resolve(*args, ma, "fused", taps).numpy()
-    _assert_packed_close(got, want)
-    # the taps act: the frame differs from the one-tap frame
-    one = shade_resolve(*args, ma).numpy()
-    assert (_u8_step(got, one) > 1).mean() > 0.01
-
-
 def test_classic_matches_jax_kernel_on_a_mirror_plane():
     from vktf_tpu.ops.shade_kernel import shade_addr_chunk, shade_final_chunk
     from vktf_tpu_torch.ops.shade_kernel import shade_resolve
 
     st = _plane_stages("mirror")
-    ma = _config().max_anisotropy
+    ma = tp.port_config().max_anisotropy
     background = np.zeros(4, np.float32)
 
     @jax.jit
@@ -165,13 +94,13 @@ def test_classic_matches_jax_kernel_on_a_mirror_plane():
                                  max_anisotropy=ma, interpret=True, frac=frac,
                                  background=background, fused_pool=False)
 
-    want = np.asarray(reference(*_jax_args(st), st["frac"]))
-    args = _port(st, "tri", "sx", "sy", "frac", "table", "pool", "cam", "lights", "bg")
+    want = np.asarray(reference(*tp.jax_shade_args(st), st["frac"]))
+    args = tp.stage_tensors(st, "tri", "sx", "sy", "frac", "table", "pool", "cam", "lights", "bg")
     got = shade_resolve(*args, ma, "classic").numpy()
     assert ((want & 0xFFFFFF) != 0).mean() > 0.3
-    _assert_packed_close(got, want)
+    tp.assert_packed_close(got, want)
     # mirror wrap matters here: the fused row's slot B would read other texels
-    assert (_u8_step(shade_resolve(*args, ma, "fused").numpy(), got) > 0).any()
+    assert (tp.u8_step(shade_resolve(*args, ma, "fused").numpy(), got) > 0).any()
 
 
 @pytest.mark.parametrize("samplers", [
@@ -188,8 +117,8 @@ def test_classic_equals_fused_bitwise(samplers):
         frames = {}
         for fused in (None, False):
             scene = Scene([tp.plane_asset(**spec)],
-                          _config(width=PLANE_W, height=PLANE_H, tile_shape=(32, 64),
-                                  peel_layers=layers, shade_fused_pool=fused),
+                          tp.port_config(width=PLANE_W, height=PLANE_H, tile_shape=(32, 64),
+                                         peel_layers=layers, shade_fused_pool=fused),
                           camera=camera, device="cpu")
             assert not scene.meta.mirror_wrap and not scene.meta.mixed_samplers
             frames[scene.frame_program.form.texels] = scene.render_still()
@@ -204,12 +133,12 @@ def test_per_slot_and_classic_taps_match_jax_xla(which, texels, taps):
     from vktf_tpu_torch.ops.shade_kernel import shade_layer
 
     st = _plane_stages(which)
-    ma = _config().max_anisotropy
+    ma = tp.port_config().max_anisotropy
     rgb_j, alpha_j, covered = (np.asarray(a) for a in jax.jit(
         lambda *a: shade_table_layer(*a, max_anisotropy=ma,
                                      per_slot_samplers=texels == "per_slot",
-                                     aniso_taps=taps))(*_jax_args(st)))
-    tri, sx, sy, table, pool, cam, lights = _port(
+                                     aniso_taps=taps))(*tp.jax_shade_args(st)))
+    tri, sx, sy, table, pool, cam, lights = tp.stage_tensors(
         st, "tri", "sx", "sy", "table", "pool", "cam", "lights")
     rgb, alpha = shade_layer(tri[None], sx, sy, table, pool, cam, lights, ma, texels, taps)
     assert covered.mean() > 0.3
@@ -223,9 +152,9 @@ def test_per_slot_and_classic_taps_match_jax_xla(which, texels, taps):
 def _jax_attrs():
     from vktf_tpu.ops.shade_kernel import shade_attrs_chunk
 
-    st = _sponza_stages()
-    tri, sx, sy, table = _jax_args(st)[:4]
-    attrs, r0, r1 = jax.jit(lambda *a: shade_attrs_chunk(*a, _config().max_anisotropy))(
+    st = tp.sponza_stages()
+    tri, sx, sy, table = tp.jax_shade_args(st)[:4]
+    attrs, r0, r1 = jax.jit(lambda *a: shade_attrs_chunk(*a, tp.port_config().max_anisotropy))(
         tri, sx, sy, table)
     return np.asarray(attrs), np.asarray(r0), np.asarray(r1)
 
@@ -238,9 +167,9 @@ def test_attrs_phase_a_matches_jax():
     from vktf_tpu_torch.ops.shade_kernel import A_LFRAC, A_WPOS, ATTR_ROWS, fragment_attrs
 
     lfrac_abs, moved_share = 2e-6, 1e-3
-    st = _sponza_stages()
-    attrs, r0, r1 = fragment_attrs(*_port(st, "tri", "sx", "sy", "table"),
-                                   _config().max_anisotropy)
+    st = tp.sponza_stages()
+    attrs, r0, r1 = fragment_attrs(*tp.stage_tensors(st, "tri", "sx", "sy", "table"),
+                                   tp.port_config().max_anisotropy)
     want, want_r0, want_r1 = _jax_attrs()
     attrs = attrs.numpy()
     assert attrs.shape == (ATTR_ROWS, st["tri"].shape[0]) and want.shape[0] >= ATTR_ROWS
@@ -258,9 +187,9 @@ def test_attrs_shade_matches_jax_kernel(form):
     from vktf_tpu.ops.shade_kernel import shade_final_attrs_chunk
     from vktf_tpu_torch.ops.shade_kernel import ATTR_ROWS, shade_attrs_layer, shade_attrs_resolve
 
-    st = _sponza_stages()
+    st = tp.sponza_stages()
     attrs, r0, r1 = _jax_attrs()
-    tri, pool, cam, lights = _port(st, "tri", "pool", "cam", "lights")
+    tri, pool, cam, lights = tp.stage_tensors(st, "tri", "pool", "cam", "lights")
     port_attrs = torch.from_numpy(np.array(attrs[:ATTR_ROWS]))
     p_r0, p_r1 = torch.from_numpy(np.array(r0)), torch.from_numpy(np.array(r1))
     background = np.zeros(4, np.float32)
@@ -271,7 +200,7 @@ def test_attrs_shade_matches_jax_kernel(form):
     if form == "resolve":
         got = shade_attrs_resolve(port_attrs, p_r0, p_r1, tri, torch.from_numpy(st["frac"]),
                                   pool, cam, lights, torch.zeros(3))
-        _assert_packed_close(got.numpy(), np.asarray(want))
+        tp.assert_packed_close(got.numpy(), np.asarray(want))
         assert ((np.asarray(want) & 0xFFFFFF) != 0).mean() > 0.5
     else:
         rgb, alpha = shade_attrs_layer(port_attrs[None], p_r0[None], p_r1[None], tri[None],
@@ -325,7 +254,7 @@ def test_frame_program_routes_as_jax(flags, overrides):
                   mixed_samplers=flags[1])
     jconfig = tp.jax_config(**overrides)
     jprog = PallasFrameProgram(JMeta(**fields), jconfig)
-    form = FrameProgram(SceneMeta(**fields), _config(**overrides)).form
+    form = FrameProgram(SceneMeta(**fields), tp.port_config(**overrides)).form
     assert (form.texels, form.taps, form.attrs) == _jax_form(jprog, jconfig, JMeta(**fields))
 
 
@@ -334,7 +263,7 @@ def test_aniso_taps_outside_1_2_4_8_raise(taps):
     from vktf_tpu_torch.ops.shade_kernel import shade_resolve
 
     with pytest.raises(ValueError, match="aniso_taps"):
-        _config(aniso_taps=taps)
+        tp.port_config(aniso_taps=taps)
     z = torch.zeros(1)
     with pytest.raises(ValueError, match="taps"):
         shade_resolve(torch.zeros(1, dtype=torch.int32), z, z, z, torch.zeros(1, 64),

@@ -25,12 +25,6 @@ import torch_parity as tp
 tp.limit_threads()
 
 
-def _port_config(**kw):
-    from vktf_tpu_torch.config import RenderConfig
-
-    return RenderConfig(**{"width": tp.WIDTH, "height": tp.HEIGHT, "msaa_samples": 4, **kw})
-
-
 @functools.lru_cache(maxsize=None)
 def _port_scene(name: str, **kw):
     from vktf_tpu_torch.scene.flatten import scene_from_numpy
@@ -39,7 +33,7 @@ def _port_scene(name: str, **kw):
     _scene, jmeta = tp.jax_scene(name)
     _jcam, tcam = tp.cameras()
     return Scene.from_render_scene(scene_from_numpy(tp.jax_leaves(name), "cpu"),
-                                   tp.port_meta(jmeta), _port_config(**kw), camera=tcam)
+                                   tp.port_meta(jmeta), tp.port_config(**kw), camera=tcam)
 
 
 # Per case, the pixels where the JAX package's winner (a sample's nearest

@@ -214,7 +214,7 @@ def test_mesh_stages_are_frame_spans(box):
     leaves, meta = box
     config = _config()
     names, overlap, frame = launch.run(_mesh_stages, 2, leaves, meta, config, POSITION,
-                                       DIRECTION, device="cpu")
+                                       DIRECTION, device="cpu", timeout_s=300)
     assert names == ["frame." + s for s in (
         "scene_update", "camera_broadcast", "setup", "shade_table", "table_gather",
         "setup_gather", "stream_order", "raster", "merge", "winner", "table_wait", "shade",

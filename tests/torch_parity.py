@@ -138,6 +138,16 @@ def jax_program(name: str, msaa: int = 4, peel_layers=None, **kw):
     return PallasFrameProgram(meta, jax_config(msaa, peel_layers=peel_layers, **kw))
 
 
+@functools.lru_cache(maxsize=None)
+def jax_frame(name: str, msaa: int = 4, peel_layers=None) -> np.ndarray:
+    """The JAX program's (3, HEIGHT, WIDTH) u8 frame of name from the
+    parity camera, rendered once per process."""
+    scene, _meta = jax_scene(name)
+    jcam, _ = cameras()
+    prog = jax_program(name, msaa, peel_layers)
+    return np.asarray(prog(scene, jcam.view_projection_transform, jcam.position))
+
+
 def port_meta(jmeta):
     """The port's SceneMeta carrying the JAX scene's static facts."""
     from vktf_tpu_torch.scene.flatten import SceneMeta
@@ -654,6 +664,60 @@ def assert_frames_close(got, want, shape, jax_wrong=()) -> None:
         diff[y, x] = 0
     assert diff.max() <= 1, (int(diff.max()), np.argwhere(diff > 1)[:40].tolist())
     assert (diff > 0).mean() <= 5e-3, float((diff > 0).mean())
+
+
+def port_config(**kw):
+    """The port's RenderConfig of the parity tests: WIDTH x HEIGHT at 4x
+    MSAA, kw overriding."""
+    from vktf_tpu_torch.config import RenderConfig
+
+    return RenderConfig(**{"width": WIDTH, "height": HEIGHT, "msaa_samples": 4, **kw})
+
+
+@functools.lru_cache(maxsize=None)
+def sponza_stages():
+    """The small courtyard (the JAX package's scene) through the port's
+    stages, as numpy."""
+    from vktf_tpu_torch.scene.flatten import scene_from_numpy
+    from vktf_tpu_torch.scene.scene import Scene
+
+    _scene, jmeta = jax_scene("sponza_small")
+    _jcam, tcam = cameras()
+    scene = Scene.from_render_scene(scene_from_numpy(jax_leaves("sponza_small"), "cpu"),
+                                    port_meta(jmeta), port_config(), camera=tcam)
+    return {k: v.numpy() for k, v in port_stages(scene).items()}
+
+
+def stage_tensors(st, *names) -> list:
+    """The named numpy stage outputs of st as torch tensors."""
+    return [torch.from_numpy(np.ascontiguousarray(st[n])) for n in names]
+
+
+def jax_shade_args(st) -> tuple:
+    """(tri, sx, sy, table, pool, cam, lights) of port stages as the JAX
+    shade kernels take them."""
+    return (st["tri"], st["sx"], st["sy"], pack_table(st["table"]), pool_u16(st["pool"]),
+            st["cam"], st["lights"])
+
+
+# resolved pixels: one u8 step on at most this share of the pixels
+PACKED_STEP_SHARE = 1e-3
+
+
+def u8_step(got, want) -> np.ndarray:
+    """The largest u8 step of any channel between two packed RGB frames."""
+    step = np.zeros(got.shape, np.int64)
+    for c in range(3):
+        step = np.maximum(step, np.abs(((got >> (8 * c)) & 0xFF).astype(np.int64)
+                                       - ((want >> (8 * c)) & 0xFF)))
+    return step
+
+
+def assert_packed_close(got, want) -> None:
+    assert got.shape == want.shape
+    step = u8_step(got, want)
+    assert step.max() <= 1, int(step.max())
+    assert (step > 0).mean() <= PACKED_STEP_SHARE, float((step > 0).mean())
 
 
 def sample_rate_frames(name: str, width: int, height: int, **kw):
