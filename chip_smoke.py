@@ -30,12 +30,19 @@ Needs one CUDA card and nvcc. In order, it:
      shade table also as the bare C launch on preallocated outputs (CUDA
      events around launches queued behind a sleep kernel, and the
      profiler's kernel time), beside the wrapper; prints what the raster
-     kernel stages for the frame's stream (staging_counts);
+     kernel stages for the frame's stream (staging_counts); holds the
+     raster's winner form (rasterize_winner) bit for bit to pixel_winner
+     of its planes form and to pixel_winner of the plain version's planes
+     (winners within the raster's sample tolerance, coverage bit-equal
+     where they agree) and times both forms and the planes form with
+     phase A in torch beside each form's bound (winner_held); the raster
+     and raster_layers records are the winner form, which the one-card
+     pixel-rate frame runs;
   5a. the raster prologue (raster_stream) bit for bit against its plain
      version and timed beside it and its byte bound, at the sponza's
      stream and at the 2160p benchmark cell's (benchmark/configs'
      flythrough, 2,979,744 triangles, built by the benchmark's scene
-     generator);
+     generator), and the winner form there at K = 1 and K = 8;
   5b. holds the depth at every covered sample of that frame (setup and
      raster kernels) to the float64 depth of its triangle through the same
      float32 clip corners, computed in float64 on the card, within the
@@ -47,9 +54,9 @@ Needs one CUDA card and nvcc. In order, it:
      materials BLEND at alpha 0.5 (K = 8 from the scene), frames through
      Scene.render_async with the counters zeroed and read (in flight and
      behind a sleeping stream, too), the K-layer
-     raster (and its staging counts) and the layer shade held against their
-     plain versions and timed, and the stage-by-stage frame against the
-     Scene frame;
+     raster (and its staging counts and its winner form) and the layer
+     shade held against their plain versions and timed, and the
+     stage-by-stage frame against the Scene frame;
   8. the texture side paths, each a path of its own through Scene with
      the counters zeroed and read, its kernel held against its plain
      version at the frame's shapes and timed:
@@ -315,16 +322,19 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def raster_bound(stream, height: int, width: int, samples: int, layers: int):
+def raster_bound(stream, height: int, width: int, samples: int, layers: int,
+                 winner: bool = False):
     """Valid triangles' 20 stream rows and 8 bbox rows read once, the chunk
-    bboxes, the (K, S, H, W) ids and depths written once; operations per
-    (sample, triangle) pair whose pixel lies in the triangle's bbox."""
+    bboxes, and the output written once: the (K, S, H, W) ids and depths of
+    the planes form, or the winner form's (K, H, W) int32 ids and (H, W)
+    float32 coverage; operations per (sample, triangle) pair whose pixel
+    lies in the triangle's bbox."""
     tri_data, tri_bbox, chunk_bbox = stream
     valid = tri_data[15] >= 0
     box = tri_bbox[:4, valid]
     area = (box[2] - box[0]).clamp(min=0) * (box[3] - box[1]).clamp(min=0)
-    nbytes = (int(valid.sum()) * 28 * 4 + chunk_bbox.numel() * 4
-              + layers * samples * height * width * 8)
+    out = (layers + 1) * 4 if winner else layers * samples * 8
+    nbytes = int(valid.sum()) * 28 * 4 + chunk_bbox.numel() * 4 + height * width * out
     return bound(nbytes, float(area.double().sum()) * samples * RASTER_OPS)
 
 
@@ -363,6 +373,55 @@ def stream_held(what: str, tri_data, bbox_rows, perm) -> tuple:
     return kernel_ms, plain_ms, bound_pair
 
 
+def winner_held(what: str, stream, height: int, width: int, samples: int, layers: int,
+                plain=None, allowed: int = 0) -> tuple:
+    """The raster kernel's winner form at one stream: bit for bit
+    pipeline.pixel_winner of its planes form and, where ``plain`` gives the
+    plain version's (ids, depth) planes, against pixel_winner of those: at
+    most ``allowed`` pixels whose winner differs in a layer, and the
+    coverage bit-equal wherever the winners agree. Then timed through the
+    wrappers against the planes form alone and the planes form followed by
+    phase A in torch (the frame program before the winner form), and each
+    form's raster_kernel alone (profiler), beside each form's bound.
+    Returns (max |coverage diff| against the plain version, winner form ms
+    through the wrapper, (bound ms, what bounds it))."""
+    from vktf_tpu_torch.ops import pipeline, raster
+
+    args = (*stream, height, width, samples, layers)
+    tri, frac = raster.rasterize_winner(*args)
+    want_tri, want_frac = pipeline.pixel_winner(*raster.rasterize(*args))
+    n_bad = int((tri != want_tri).sum()) + bits_mismatch(frac, want_frac)[0]
+    require(n_bad == 0, f"raster winner form, {what}, K = {layers}: bit-equal to pixel_winner "
+                        f"of the planes form ({n_bad} values differ)")
+    err = 0.0
+    if plain is not None:
+        p_tri, p_frac = pipeline.pixel_winner(*plain)
+        agree = (tri == p_tri) if layers == 1 else (tri == p_tri).all(dim=0)
+        px_bad = int((~agree).sum())
+        f_bad, err = bits_mismatch(frac[agree], p_frac[agree])
+        log(f"[winner form] {what}, K = {layers}: against pixel_winner of the plain version's "
+            f"planes, winner differs at {px_bad} of {agree.numel()} pixels (tolerance {allowed}), "
+            f"coverage not bit-equal at {f_bad} of the rest (tolerance: bit-equal)")
+        require(px_bad <= allowed and f_bad == 0,
+                f"raster winner form, {what}, K = {layers}: against the plain version")
+        del p_tri, p_frac, agree
+    del tri, frac, want_tri, want_frac
+    forms = {"winner form": lambda: raster.rasterize_winner(*args),
+             "planes form": lambda: raster.rasterize(*args)}
+    ms = {name: cuda_ms(fn, 20) for name, fn in forms.items()}
+    ms["planes + phase A"] = cuda_ms(lambda: pipeline.pixel_winner(*raster.rasterize(*args)), 20)
+    alone = {name: profiled_ms(fn, 20, "raster_kernel") for name, fn in forms.items()}
+    bounds = {name: raster_bound(stream, height, width, samples, layers, name == "winner form")
+              for name in forms}
+    log(f"[winner form] {what}, {samples}x, K = {layers}: bit-equal to pixel_winner of the "
+        "planes form; ms through the wrappers (CUDA events): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + "; raster_kernel alone "
+        "(profiler): " + ", ".join(f"{k} " + ("not measured" if v is None else f"{v:.4f}")
+                                   for k, v in alone.items())
+        + "; bound: " + ", ".join(f"{k} {b:.5f} ms ({by})" for k, (b, by) in bounds.items()))
+    return err, ms["winner form"], bounds["winner form"]
+
+
 def stream_2160p(dev) -> None:
     """Phase 5a at the 2160p benchmark cell's stream: its configuration's
     scene (benchmark/scene_gen.py, seed 0) at its camera."""
@@ -378,6 +437,10 @@ def stream_2160p(dev) -> None:
     st = frame_stages(scn)
     log(f"raster stream, 2160p cell: scene built in {time.perf_counter() - t0:.1f} s")
     stream_held("2160p cell", st["setup"]["tri_data"], st["setup"]["bbox_rows"], st["perm"])
+    cfg = scn.config
+    for layers in (1, 8):
+        winner_held("2160p cell", st["stream"], cfg.padded_height, cfg.padded_width,
+                    cfg.msaa_samples, layers)
     del scn, st
     torch.cuda.empty_cache()
 
@@ -1569,9 +1632,12 @@ def main() -> int:
         f"bit-equal)")
     require(id_bad <= RASTER_ID_MISMATCH * ids.numel() and d_bad == 0, "raster")
     log("raster staging, opaque:", json.dumps(staging_counts(stream, ph, pw)))
-    record(raster.KERNEL, d_err, cuda_ms(lambda: raster.rasterize(*r_args), 10),
-           cuda_ms(lambda: raster.rasterize_plain(*r_args), 2),
-           raster_bound(stream, ph, pw, config.msaa_samples, 1))
+    # the record is the winner form, which the one-card pixel-rate frame runs; a
+    # differing sample moves at most one pixel's winner
+    w_err, w_ms, w_bound = winner_held("sponza", stream, ph, pw, config.msaa_samples, 1,
+                                       (ids_p, depth_p), int(RASTER_ID_MISMATCH * ids.numel()))
+    record(raster.KERNEL, w_err, w_ms,
+           cuda_ms(lambda: pipeline.pixel_winner(*raster.rasterize_plain(*r_args)), 2), w_bound)
 
     # ---- 5a. the raster prologue against its plain version ---------------
     record(raster.KERNEL_STREAM, 0.0,
@@ -1667,10 +1733,11 @@ def main() -> int:
         f"max |depth diff| {d_err:.3e} (tolerance: ids exact, depth bit-equal)")
     require(id_bad == 0 and d_bad == 0, "K-layer raster")
     log("raster staging, translucent:", json.dumps(staging_counts(stream_t, ph, pw)))
+    w_err, w_ms, w_bound = winner_held("translucent sponza", stream_t, ph, pw,
+                                       config.msaa_samples, layers, (ids_tp, depth_tp))
     del ids_tp, depth_tp
-    record(raster.KERNEL_LAYERS, d_err, cuda_ms(lambda: raster.rasterize(*rl_args), 10),
-           cuda_ms(lambda: raster.rasterize_plain(*rl_args), 1),
-           raster_bound(stream_t, ph, pw, config.msaa_samples, layers))
+    record(raster.KERNEL_LAYERS, w_err, w_ms,
+           cuda_ms(lambda: pipeline.pixel_winner(*raster.rasterize_plain(*rl_args)), 1), w_bound)
 
     table_t = shade_table.build_shade_table(setup_t["edge9"], rs_t.tri_corner,
                                             rs_t.tri_static_cols, setup_t["anchor2"],

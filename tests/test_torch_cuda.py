@@ -28,7 +28,10 @@ encodings on the card bit for bit the CPU's; sample-rate frames and the
 duck and box presets on the card against the CPU (FRAME_MISMATCH), the
 sample-rate frame's launches, the raster's band offset against the full
 frame's rows, and two gloo ranks sharing the card against its one-device
-frame. Tolerance otherwise: bit-equal (the
+frame; the raster's winner form against pixel_winner of its planes form at
+every (S, K) and band, on empty pixels and depth ties, and pixel-rate
+frames through it against frames through the planes. Tolerance otherwise:
+bit-equal (the
 kernels run the plain versions' operations in the same order, with fused
 multiply-adds at the same places and the same CUDA math library).
 """
@@ -256,6 +259,99 @@ def test_raster_kernel_equal_depth_stack(dev, msaa):
     tp.assert_bits_equal(depth.cpu().numpy(), depth_p.cpu().numpy(), "depth")
 
 
+def _assert_winners_equal(got, want, what):
+    """(tri, frac) of the winner form against pixel_winner's, bit for bit."""
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.float32, what
+    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape, what
+    assert torch.equal(got[0], want[0]), (what, int((got[0] != want[0]).sum()))
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32)), what
+
+
+@pytest.mark.parametrize("layers", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("msaa", [1, 2, 4, 8])
+def test_raster_winner_form(dev, msaa, layers):
+    """The raster kernel's winner form against pixel_winner of its planes
+    form on the same stream, bit for bit, at every (S, K) instantiation
+    (3 and 5 layers ride K = 4 and 8), on the whole frame and on bands; it
+    counts as a launch of the raster record of its K."""
+    from vktf_tpu_torch.ops import pipeline, raster
+
+    _rs, _m, _l, _vp, _setup, stream = _stages(dev, msaa)
+    record = raster.KERNEL if layers == 1 else raster.KERNEL_LAYERS
+    for y0, rows in ((0, tp.HEIGHT), (64, 64), (16, 48), (96, 64)):
+        before = record.launches
+        got = raster.rasterize_winner(*stream, rows, tp.WIDTH, msaa, layers, y0)
+        assert record.launches == before + 1
+        want = pipeline.pixel_winner(*raster.rasterize(*stream, rows, tp.WIDTH, msaa, layers,
+                                                       y0))
+        _assert_winners_equal(got, want, f"band {y0}")
+        front = got[0] if layers == 1 else got[0][0]
+        if y0 == 0:
+            assert 0.5 < float((front >= 0).float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("layers", [1, 8])
+@pytest.mark.parametrize("msaa", [1, 4])
+def test_raster_winner_form_empty_pixels_and_depth_ties(dev, msaa, layers):
+    """Two triangles (ids 0, 1) sharing the diagonal of a square at equal
+    depth, and a nearer rectangle (ids 2, 3) over part of the square: where
+    a pixel's samples tie in depth the least id wins, a nearer sample wins
+    over a lesser id, and an empty pixel reads -1 with coverage 0."""
+    from vktf_tpu_torch.ops import pipeline, raster
+
+    tris = [[(2, 2), (10, 10), (10, 2)], [(2, 2), (2, 10), (10, 10)],
+            [(6.25, 2), (7, 10), (7, 2)], [(6.25, 2), (6.25, 10), (7, 10)]]
+    s = tp.setup_px(tris, 64, 32, [0.5, 0.5, 0.25, 0.25])
+    tri_data, bbox_rows, valid = (s[k].to(dev) for k in ("tri_data", "bbox_rows", "valid"))
+    stream = raster.raster_stream(tri_data, bbox_rows, raster.stream_perm(bbox_rows, valid))
+    tri, frac = raster.rasterize_winner(*stream, 32, 64, msaa, layers)
+    _assert_winners_equal((tri, frac),
+                          pipeline.pixel_winner(*raster.rasterize(*stream, 32, 64, msaa, layers)),
+                          "hand scene")
+    front = (tri if layers == 1 else tri[0]).reshape(32, 64).cpu()
+    cover = frac.reshape(32, 64).cpu()
+    # pixels (x, y), indexed [y, x]. (4, 4) on the shared diagonal: at 4x
+    # samples 0, 1 are tri 0's and 2, 3 tri 1's, all at depth 0.5; at 1x
+    # the sample on the diagonal is tri 0's
+    assert int(front[4, 4]) == 0 and float(cover[4, 4]) == 1.0
+    # (6, 4): the rectangle covers the sample at x 6.5 (1x, tri 2's) and
+    # three of four (4x: tris 3, 2, 2 at depth 0.25); the fourth is tri 0's,
+    # at 0.5: the least id among the nearest samples wins
+    assert int(front[4, 6]) == 2 and float(cover[4, 6]) == 1.0
+    assert int(front[20, 40]) == -1 and float(cover[20, 40]) == 0.0
+    assert bool(((front == -1) == (cover == 0)).all())
+    if layers > 1:  # behind the rectangle, the square
+        assert int(tri[1].reshape(32, 64)[4, 6]) == 0
+
+
+@pytest.mark.parametrize("name, kw", [("sponza_small", {}), ("sponza_small_blend", {}),
+                                      ("sponza_small", {"shade_attrs_boundary": True}),
+                                      ("sponza_small", {"msaa_samples": 8, "aniso_taps": 2})])
+def test_pixel_rate_frame_takes_the_winner_form(dev, name, kw, monkeypatch):
+    """A one-device pixel-rate frame on the card runs phase A in the raster
+    kernel (pixel_winner is never called) and equals, bit for bit, the same
+    frame built from the planes form and pixel_winner."""
+    from vktf_tpu_torch.config import RenderConfig
+    from vktf_tpu_torch.ops import pipeline, raster
+    from vktf_tpu_torch.scene.scene import Scene
+
+    cfg = RenderConfig(width=tp.WIDTH, height=tp.HEIGHT, **{"msaa_samples": 4, **kw})
+    scene = Scene(tp.torch_assets(name), cfg, camera=tp.port_camera(), device=dev)
+    plain_winner = pipeline.pixel_winner
+
+    def refused(*args, **kwargs):
+        raise AssertionError("phase A ran outside the raster kernel")
+
+    monkeypatch.setattr(pipeline, "pixel_winner", refused)
+    got = scene.render_still()
+    monkeypatch.setattr(pipeline, "pixel_winner", plain_winner)
+    monkeypatch.setattr(raster, "rasterize_winner",
+                        lambda *args: plain_winner(*raster.rasterize(*args)))
+    want = scene.render_still()
+    assert (want.max(axis=0) > 0).mean() > 0.5
+    np.testing.assert_array_equal(got, want)
+
+
 def test_shade_layer_kernel(dev):
     from vktf_tpu_torch.ops import pipeline, raster, shade_kernel, shade_table
 
@@ -300,11 +396,16 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
         shade_table.build_shade_table(setup["edge9"][:, ::2], rs.tri_corner[:, ::2],
                                       rs.tri_static_cols[:, ::2],
                                       setup["anchor2"][:, ::2], inst_rows, tri_instance[::2])
-    with pytest.raises(ValueError):  # frame not a multiple of the 16 px block
-        raster.rasterize(*stream, 100, 100, 4)
-    for layers in (0, 9):  # the kernel keeps 1..8 layers
-        with pytest.raises(ValueError):
-            raster.rasterize(*stream, tp.HEIGHT, tp.WIDTH, 4, layers)
+    for form in (raster.rasterize, raster.rasterize_winner):
+        with pytest.raises(ValueError):  # frame not a multiple of the 16 px block
+            form(*stream, 100, 100, 4)
+        with pytest.raises(ValueError):  # a band that does not start on a block row
+            form(*stream, 64, tp.WIDTH, 4, 1, 8)
+        for layers in (0, 9):  # the kernel keeps 1..8 layers
+            with pytest.raises(ValueError):
+                form(*stream, tp.HEIGHT, tp.WIDTH, 4, layers)
+        with pytest.raises(ValueError):  # the stream's rows still on the host
+            form(stream[0], stream[1].cpu(), stream[2], tp.HEIGHT, tp.WIDTH, 4)
     perm = raster.stream_perm(setup["bbox_rows"], setup["valid"])
     for bad in (perm.int(), perm.cpu(), perm[:-256]):  # not int64; on the host; too short
         with pytest.raises(ValueError):

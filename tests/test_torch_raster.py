@@ -9,11 +9,21 @@ triangle id exactly and on its depth bit for bit wherever the ids agree
 The CUDA kernel's staging counts (chip_smoke.staging_counts) against a
 block-by-block count.
 
+The winner form's wrapper (``rasterize_winner``) on the CPU against the
+JAX package's phase A (``vktf_tpu.ops.pipeline._tiled_winner``) of the same
+plain planes laid out as one raster block: every pixel's winner per layer
+exactly and its coverage bit for bit, at every MSAA count, at K = 1, 3 and
+8 layers and in a band of rows, with the shapes and dtypes the shade
+kernels take (tests/test_torch_cuda.py holds the kernel's winner form to
+``pixel_winner`` of its planes on the card).
+
 Against the hand: the Vulkan fill-rule cases of
 tests/test_raster_pallas.py (TestFillRulesHandComputed), with their
 expected coverage written out as literal arrays, on geometry whose screen
 coordinates are exact in float32.
 """
+
+import functools
 
 import numpy as np
 import jax
@@ -196,3 +206,66 @@ def test_staging_counts_match_a_direct_count():
     assert got["block_tri_touches"] == sum(touches)
     assert got["touching_tris_per_block_max"] == max(touches)
     assert got["staged_mb"] == round(sum(touches) * 96 / 1e6, 3)
+
+
+WIN_W, WIN_H = 64, 48
+
+
+@functools.lru_cache(maxsize=None)
+def _winner_stream():
+    """A stream of seeded triangles over part of a 64x48 frame, at four
+    depths, so samples of a pixel tie in depth, overlap in layers, and
+    leave pixels and samples empty."""
+    from vktf_tpu_torch.ops.raster import raster_stream, stream_perm
+
+    rng = np.random.default_rng(21)
+    tris, z = [], []
+    for _ in range(60):
+        x, y = 0.25 * rng.integers(0, 4 * 44, size=2)
+        r = 0.25 * rng.integers(4, 40)
+        tris.append([(x, y), (x + r, y + r), (x + r, y)] if rng.integers(2)
+                    else [(x, y), (x, y + r), (x + r, y + r)])
+        z.append(rng.integers(1, 5) / 8.0)
+    s = tp.setup_px(tris, WIN_W, WIN_H, z)
+    return raster_stream(s["tri_data"], s["bbox_rows"], stream_perm(s["bbox_rows"], s["valid"]))
+
+
+@pytest.mark.parametrize("y_offset, rows", [(0, WIN_H), (16, 32)], ids=["frame", "band"])
+@pytest.mark.parametrize("layers", [1, 3, 8])
+@pytest.mark.parametrize("msaa", [1, 2, 4, 8])
+def test_rasterize_winner_is_pixel_winner_of_the_planes(msaa, layers, y_offset, rows):
+    import torch
+
+    import jax.numpy as jnp
+    from vktf_tpu.config import RenderConfig
+    from vktf_tpu.ops.pipeline import _tiled_winner
+    from vktf_tpu_torch.ops.raster import rasterize_plain, rasterize_winner
+
+    stream = _winner_stream()
+    tri, frac = rasterize_winner(*stream, rows, WIN_W, msaa, layers, y_offset)
+    n = rows * WIN_W
+    assert tri.dtype == torch.int32 and frac.dtype == torch.float32
+    assert tuple(tri.shape) == ((n,) if layers == 1 else (layers, n))
+    assert tuple(frac.shape) == (n,)
+    # the plain planes as one JAX raster block: (K, 1, H * S, W), row y * S + s
+    planes = [p.reshape(layers, msaa, rows, WIN_W).permute(0, 2, 1, 3)
+              .reshape(layers, 1, rows * msaa, WIN_W).numpy()
+              for p in rasterize_plain(*stream, rows, WIN_W, msaa, layers, y_offset)]
+    cfg = RenderConfig(width=WIN_W, height=rows, tile_shape=(rows, WIN_W), raster_interleave=1)
+    want_tri, want_frac = _tiled_winner(*(jnp.asarray(p) for p in planes), cfg)
+    np.testing.assert_array_equal(tri.reshape(layers, n).numpy(), np.asarray(want_tri))
+    tp.assert_bits_equal(frac.numpy(), np.asarray(want_frac), "frac")
+    # the scene reaches every case of the rule
+    front = tri if layers == 1 else tri[0]
+    assert bool((front == -1).any()) and bool((front >= 0).any())
+    assert bool((frac == 0).any()) and bool((frac == 1).any())
+    assert bool(((front == -1) == (frac == 0)).all())
+    if msaa > 1:
+        assert bool(((frac > 0) & (frac < 1)).any())
+    if layers > 1:
+        assert bool((tri[1] >= 0).any())
+    if y_offset:
+        full_tri, full_frac = rasterize_winner(*stream, WIN_H, WIN_W, msaa, layers)
+        rows_of = slice(y_offset * WIN_W, (y_offset + rows) * WIN_W)
+        assert torch.equal(tri, full_tri[..., rows_of])
+        assert torch.equal(frac, full_frac[rows_of])

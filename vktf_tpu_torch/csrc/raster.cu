@@ -47,6 +47,13 @@
 // the global pixel row (an exact integer in f32), and only the output index
 // takes the row within the band, so a band's rows equal the full frame's
 // rows bit for bit (rasterize_pallas's y_offset, raster_pallas.py:916).
+// Two output forms share every line but the epilogue. The planes form writes
+// each sample's K slots as (layers, S, height, width) ids and depths. The
+// winner form writes phase A (ops/pipeline.py pixel_winner) from the slots
+// the thread already holds: per layer the pixel's winner, the least id among
+// its covered samples at the least depth (-1 when none), as (layers,
+// height * width) ids, and layer 0's covered-sample share as (height * width)
+// floats, so a pixel-rate frame never writes the planes or reads them back.
 // No matrix product occurs, so wgmma does not apply. The alternatives
 // measured against these choices (plain loads, one chunk per list, other
 // group and test widths, 16-pixel warp rows, lists row by row, ptxas's own
@@ -189,7 +196,7 @@ __device__ __forceinline__ void evaluate(const float* list, int count, float fpx
 template <int S, int K>
 constexpr int kMinBlocks = S * K <= 4 ? 4 : (S * K <= 8 ? 3 : (S * K <= 32 ? 2 : 1));
 
-template <int S, int K>
+template <int S, int K, bool Winner>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<S, K>) raster_kernel(
     const float* __restrict__ tri_data, const float* __restrict__ tri_bbox,
     const float* __restrict__ chunk_bbox, int* __restrict__ out_id,
@@ -330,61 +337,85 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<S, K>) raster_kernel(
   if (pending) evaluate<S, K>(lists[cur ^ 1], kList, fpx, fpy, off, best);
   evaluate<S, K>(lists[cur], n_list, fpx, fpy, off, best);
 
-  // output (layers, S, height, width) of the band: layer-major, layers <= K
   const int row = py - y_offset;
-  if (px < width && row < height) {
+  if constexpr (Winner) {
+    // phase A of the band: out_id (layers, height * width) the winners,
+    // out_depth (height * width) layer 0's coverage; layers <= K
+    if (px < width && row < height) {
+      const size_t n = (size_t)height * width, pixel = (size_t)row * width + px;
 #pragma unroll
-    for (int l = 0; l < K; ++l) {
-      if (l >= layers) break;
+      for (int l = 0; l < K; ++l) {
+        if (l >= layers) break;
+        float d_min = best.d[0][l];
 #pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const size_t o = (((size_t)l * S + s) * height + row) * width + px;
-        out_id[o] = best.i[s][l];
-        out_depth[o] = best.d[s][l];
+        for (int s = 1; s < S; ++s) d_min = best.d[s][l] < d_min ? best.d[s][l] : d_min;
+        int tri = -1;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const int i = best.i[s][l];
+          if (best.d[s][l] == d_min && i >= 0 && (tri < 0 || i < tri)) tri = i;
+        }
+        out_id[l * n + pixel] = tri;
+      }
+      int covered = 0;
+#pragma unroll
+      for (int s = 0; s < S; ++s) covered += best.i[s][0] >= 0 ? 1 : 0;
+      out_depth[pixel] = (float)covered * (1.0f / S);  // exact: S is a power of two
+    }
+  } else {
+    // output (layers, S, height, width) of the band: layer-major, layers <= K
+    if (px < width && row < height) {
+#pragma unroll
+      for (int l = 0; l < K; ++l) {
+        if (l >= layers) break;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const size_t o = (((size_t)l * S + s) * height + row) * width + px;
+          out_id[o] = best.i[s][l];
+          out_depth[o] = best.d[s][l];
+        }
       }
     }
   }
 }
 
-template <int S, int K>
+template <int S, int K, bool Winner>
 void launch(dim3 blocks, dim3 threads, cudaStream_t stream, const float* tri_data,
             const float* tri_bbox, const float* chunk_bbox, int* out_id, float* out_depth,
             int n_chunks, int height, int width, int layers, int y_offset, const Offsets& off) {
-  raster_kernel<S, K><<<blocks, threads, 0, stream>>>(tri_data, tri_bbox, chunk_bbox, out_id,
-                                                      out_depth, n_chunks, height, width,
-                                                      layers, y_offset, off);
+  raster_kernel<S, K, Winner><<<blocks, threads, 0, stream>>>(
+      tri_data, tri_bbox, chunk_bbox, out_id, out_depth, n_chunks, height, width, layers,
+      y_offset, off);
 }
 
-template <int S>
+template <int S, bool Winner>
 int launch_layers(dim3 blocks, dim3 threads, cudaStream_t stream, const float* tri_data,
                   const float* tri_bbox, const float* chunk_bbox, int* out_id, float* out_depth,
                   int n_chunks, int height, int width, int layers, int y_offset,
                   const Offsets& off) {
   if (layers == 1)
-    launch<S, 1>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id, out_depth,
-                 n_chunks, height, width, layers, y_offset, off);
+    launch<S, 1, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
+                         out_depth, n_chunks, height, width, layers, y_offset, off);
   else if (layers == 2)
-    launch<S, 2>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id, out_depth,
-                 n_chunks, height, width, layers, y_offset, off);
+    launch<S, 2, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
+                         out_depth, n_chunks, height, width, layers, y_offset, off);
   else if (layers <= 4)
-    launch<S, 4>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id, out_depth,
-                 n_chunks, height, width, layers, y_offset, off);
+    launch<S, 4, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
+                         out_depth, n_chunks, height, width, layers, y_offset, off);
   else if (layers <= 8)
-    launch<S, 8>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id, out_depth,
-                 n_chunks, height, width, layers, y_offset, off);
+    launch<S, 8, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
+                         out_depth, n_chunks, height, width, layers, y_offset, off);
   else
     return (int)cudaErrorInvalidValue;
   return launch_status();
 }
 
-}  // namespace
-
 // The rows y_offset .. y_offset + height of the frame (y_offset a multiple
-// of 16); vktf_raster is the whole frame from row 0.
-VKTF_EXPORT int vktf_raster_band(const float* tri_data, const float* tri_bbox,
-                                 const float* chunk_bbox, int* out_id, float* out_depth,
-                                 int n_chunks, int height, int width, int samples, int layers,
-                                 int y_offset, const float* offsets, cudaStream_t stream) {
+// of 16) in the planes form or the winner form.
+template <bool Winner>
+int raster_band(const float* tri_data, const float* tri_bbox, const float* chunk_bbox,
+                int* out_id, float* out_depth, int n_chunks, int height, int width, int samples,
+                int layers, int y_offset, const float* offsets, cudaStream_t stream) {
   if (layers < 1 || y_offset < 0 || y_offset % kBlock) return (int)cudaErrorInvalidValue;
   Offsets off = {};
   for (int s = 0; s < samples && s < 8; ++s) {
@@ -395,20 +426,36 @@ VKTF_EXPORT int vktf_raster_band(const float* tri_data, const float* tri_bbox,
   const dim3 blocks((width + kBlock - 1) / kBlock, (height + kBlock - 1) / kBlock);
   switch (samples) {
     case 1:
-      return launch_layers<1>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
-                              out_depth, n_chunks, height, width, layers, y_offset, off);
+      return launch_layers<1, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox,
+                                      out_id, out_depth, n_chunks, height, width, layers,
+                                      y_offset, off);
     case 2:
-      return launch_layers<2>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
-                              out_depth, n_chunks, height, width, layers, y_offset, off);
+      return launch_layers<2, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox,
+                                      out_id, out_depth, n_chunks, height, width, layers,
+                                      y_offset, off);
     case 4:
-      return launch_layers<4>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
-                              out_depth, n_chunks, height, width, layers, y_offset, off);
+      return launch_layers<4, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox,
+                                      out_id, out_depth, n_chunks, height, width, layers,
+                                      y_offset, off);
     case 8:
-      return launch_layers<8>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
-                              out_depth, n_chunks, height, width, layers, y_offset, off);
+      return launch_layers<8, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox,
+                                      out_id, out_depth, n_chunks, height, width, layers,
+                                      y_offset, off);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// The planes of the rows y_offset .. y_offset + height of the frame;
+// vktf_raster is the whole frame from row 0.
+VKTF_EXPORT int vktf_raster_band(const float* tri_data, const float* tri_bbox,
+                                 const float* chunk_bbox, int* out_id, float* out_depth,
+                                 int n_chunks, int height, int width, int samples, int layers,
+                                 int y_offset, const float* offsets, cudaStream_t stream) {
+  return raster_band<false>(tri_data, tri_bbox, chunk_bbox, out_id, out_depth, n_chunks, height,
+                            width, samples, layers, y_offset, offsets, stream);
 }
 
 VKTF_EXPORT int vktf_raster(const float* tri_data, const float* tri_bbox, const float* chunk_bbox,
@@ -416,4 +463,14 @@ VKTF_EXPORT int vktf_raster(const float* tri_data, const float* tri_bbox, const 
                             int samples, int layers, const float* offsets, cudaStream_t stream) {
   return vktf_raster_band(tri_data, tri_bbox, chunk_bbox, out_id, out_depth, n_chunks, height,
                           width, samples, layers, 0, offsets, stream);
+}
+
+// The winner form of the same rows: out_tri (layers, height * width) i32,
+// out_frac (height * width) f32.
+VKTF_EXPORT int vktf_raster_winner(const float* tri_data, const float* tri_bbox,
+                                   const float* chunk_bbox, int* out_tri, float* out_frac,
+                                   int n_chunks, int height, int width, int samples, int layers,
+                                   int y_offset, const float* offsets, cudaStream_t stream) {
+  return raster_band<true>(tri_data, tri_bbox, chunk_bbox, out_tri, out_frac, n_chunks, height,
+                           width, samples, layers, y_offset, offsets, stream);
 }

@@ -24,12 +24,14 @@ form. Stages, in order:
   3. screen-Morton stream order (``ops/raster.stream_perm``), kept across
      frames until the camera moves past ``config.resort_threshold``;
   4. raster prologue (``ops/raster.raster_stream``) and raster kernel,
-     which keeps the K nearest (depth, id) fragments of every sample;
+     which keeps the K nearest (depth, id) fragments of every sample and,
+     in its winner form (``raster.rasterize_winner``), writes phase A from
+     them: per layer, the per-pixel winner (min depth, then min id) and
+     layer 0's sample coverage fraction (``pixel_winner``, the plain
+     version);
   5. shade-table kernel (``ops/shade_table.py``);
-  6. phase A in plain torch: per layer, the per-pixel winner (min depth,
-     then min id) and layer 0's sample coverage fraction; with the attrs
-     boundary also the 28 attribute rows and two pool rows of every
-     (layer, pixel) (``shade_kernel.fragment_attrs``, stage "attrs");
+  6. with the attrs boundary, the 28 attribute rows and two pool rows of
+     every (layer, pixel) (``shade_kernel.fragment_attrs``, stage "attrs");
   7. K = 1: the shade + resolve kernel of the form (``ops/shade_kernel.py``),
      which gathers the table and pool rows itself. K > 1: the layer shade
      kernel of the form, one launch over all K layers (linear radiance and
@@ -42,13 +44,13 @@ form. Stages, in order:
      the preview downsample, the yuv420 pack).
 
 Sample-rate shading (``shading_rate="sample"``, the JAX program's
-non-tiled path, ``pallas_shade_resolve``'s sample branch) replaces stages
-6 and 7 at every K: the raster's (K, S, H, W) ids, flattened sample-major,
-go through the layer shade kernel of the form at each sample's own
-position (the pixel plus its ``SAMPLE_OFFSETS`` entry), the layers are
-composited over the clear colour per sample, and the samples are averaged
-(``composite_samples``). It has no per-pixel winner and no attrs boundary,
-as the JAX path has neither.
+non-tiled path, ``pallas_shade_resolve``'s sample branch) replaces phase A
+and stages 6 and 7 at every K: the raster's planes form gives the
+(K, S, H, W) ids, which go, flattened sample-major, through the layer
+shade kernel of the form at each sample's own position (the pixel plus its
+``SAMPLE_OFFSETS`` entry); the layers are composited over the clear colour
+per sample, and the samples are averaged (``composite_samples``). It has
+no per-pixel winner and no attrs boundary, as the JAX path has neither.
 
 Nothing on the frame path waits for the card: the camera reaches it
 through pinned memory with a non-blocking copy, the clear colour is made
@@ -61,10 +63,11 @@ PERF.md.
 Under ``torch.profiler`` each stage is a span ``frame.<stage>``, flat and
 covering the frame's launches, in this order: camera (the staged copy),
 scene_update, setup, stream_order (only in a frame that re-sorts), raster
-(prologue and kernel), shade_table, winner, attrs, shade, composite (K > 1
-and sample rate) and present; the mesh program's stages likewise
-(``parallel/tiles.py``). With no profiler running and no stage timer set a
-stage is one shared no-op context.
+(prologue and kernel, phase A included), shade_table, attrs, shade,
+composite (K > 1 and sample rate) and present. The mesh program's stages
+are spans likewise (``parallel/tiles.py``); there phase A is a stage of its
+own, winner, after the devices' planes are merged. With no profiler
+running and no stage timer set a stage is one shared no-op context.
 
 The JAX program ran the setup kernel twice (a second pass over
 Morton-permuted inputs) and split the shade into two programs; both were
@@ -364,21 +367,23 @@ class FrameProgram:
             setup = setup_kernel.setup_pack(scene.tri_corner, inst_rows, tri_instance,
                                             vp, cfg.width, cfg.height)
         perm = self._maybe_resort(setup, view_projection)
+        sample_rate = cfg.shading_rate == "sample"
         with self._stage("raster"):
             stream = raster.raster_stream(setup["tri_data"], setup["bbox_rows"],
                                           perm, chunk=cfg.pallas_chunk)
-            ids, depth = raster.rasterize(*stream, ph, pw, cfg.msaa_samples,
-                                          self.layers)
+            if sample_rate:  # every sample's ids are shaded
+                ids, _depth = raster.rasterize(*stream, ph, pw, cfg.msaa_samples, self.layers)
+            else:  # phase A in the kernel's epilogue: no planes are written
+                tri, frac = raster.rasterize_winner(*stream, ph, pw, cfg.msaa_samples,
+                                                    self.layers)
         with self._stage("shade_table"):
             table = shade_table.build_shade_table(
                 setup["edge9"], scene.tri_corner, scene.tri_static_cols,
                 setup["anchor2"], inst_rows, tri_instance)
         pool = scene.quad_pool
-        if cfg.shading_rate == "sample":
+        if sample_rate:
             return self._present(self._shade_samples(ids, *self._centers, table, pool, cam,
                                                      lights, background))
-        with self._stage("winner"):
-            tri, frac = pixel_winner(ids, depth)
         return self._present(self._shade_pixels(tri, frac, *self._centers, table, pool, cam,
                                                 lights, background))
 

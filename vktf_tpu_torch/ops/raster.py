@@ -51,6 +51,15 @@ multi-device frame, ``parallel/tiles.py``): the output is the frame's rows
 y_offset .. y_offset + height, every test on global rows. Times on the card, against the previous design and the bound: PERF.md
 (kernel_ab.py, chip_smoke.py).
 
+The kernel has two output forms, one instantiation each, that differ only
+in the epilogue. ``rasterize`` takes the planes form: every sample's K
+slots as (K, S, H, W) ids and depths, for sample-rate shading and the
+multi-device merge. ``rasterize_winner`` takes the winner form: the thread
+that owns a pixel writes that pixel's phase A (``pipeline.pixel_winner``:
+per layer the least id among the covered samples at the least depth, and
+layer 0's covered share) from the slots it already holds, so a pixel-rate
+frame neither writes the planes nor reads them back.
+
 The prologue (``raster_stream``, ``csrc/raster_stream.cu``) moves bytes:
 each stream position's 28 setup floats gathered from its source column,
 32 stream floats written. Its kernel runs one 256-thread block per chunk,
@@ -86,6 +95,8 @@ KERNEL_LAYERS = _cuda.Kernel(
 _cuda.declare("raster.cu", "vktf_raster",
               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
 _cuda.declare("raster.cu", "vktf_raster_band",
+              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+_cuda.declare("raster.cu", "vktf_raster_winner",
               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
 # the prologue, launched once a frame before the raster kernel
 KERNEL_STREAM = _cuda.Kernel(
@@ -316,24 +327,23 @@ def rasterize_plain(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
     return ids.to(torch.int32).reshape(shape), depth.reshape(shape)
 
 
-def rasterize(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
-              msaa_samples: int, layers: int = 1, y_offset: int = 0):
-    """Per-sample (tri_id i32, depth f32) of a stream built by raster_stream:
-    (S, H, W) at layers == 1, else the `layers` nearest fragments of every
-    sample nearest first, (K, S, H, W); an empty layer is (-1, 1.0).
-    height/width must be multiples of 16. y_offset (a multiple of 16) makes
-    it the band of the frame's rows y_offset .. y_offset + height, equal to
-    those rows of the whole frame's raster. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+def _check(height: int, width: int, layers: int, y_offset: int) -> None:
+    """The framebuffer, band and layer checks of both output forms."""
     if height % 16 or width % 16:
         raise ValueError(f"framebuffer {height}x{width} must be a multiple of 16")
     if y_offset < 0 or y_offset % 16:
         raise ValueError(f"y_offset must be a non-negative multiple of 16, got {y_offset}")
     if not 1 <= layers <= PEEL_LAYERS_MAX:
         raise ValueError(f"layers must be 1..{PEEL_LAYERS_MAX}, got {layers}")
-    if not tri_data.is_cuda:
-        return rasterize_plain(tri_data, tri_bbox, chunk_bbox, height, width,
-                               msaa_samples, layers, y_offset)
+
+
+def _launch(entry: str, stream, outputs, height: int, width: int, msaa_samples: int,
+            layers: int, band: tuple) -> None:
+    """Check a stream of CUDA tensors built by raster_stream and launch one
+    raster entry on it, writing the two outputs (ids or winners, then
+    depths or coverage); `band` is () for vktf_raster, (y_offset,) for the
+    entries that take one."""
+    tri_data, tri_bbox, chunk_bbox = stream
     t_pad = tri_data.shape[1]
     if t_pad >= 1 << 24:
         raise ValueError("triangle ids ride f32 rows: exact only below 2^24")
@@ -348,17 +358,57 @@ def rasterize(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
     _cuda.require(tri_bbox, "tri_bbox", torch.float32, (8, t_pad), dev)
     _cuda.require(chunk_bbox, "chunk_bbox", torch.float32, (4, n_chunks), dev)
     s_count = len(SAMPLE_OFFSETS[msaa_samples])
-    shape = (layers, s_count, height, width) if layers > 1 else (s_count, height, width)
-    ids = torch.empty(shape, dtype=torch.int32, device=dev)
-    depth = torch.empty(shape, dtype=torch.float32, device=dev)
     offsets = (ctypes.c_float * (2 * s_count))(
         *[c for xy in SAMPLE_OFFSETS[msaa_samples] for c in xy])
-    operands = (_cuda.ptr(tri_data), _cuda.ptr(tri_bbox), _cuda.ptr(chunk_bbox), _cuda.ptr(ids),
-                _cuda.ptr(depth), n_chunks, height, width, s_count, layers)
-    tail = (ctypes.cast(offsets, ctypes.c_void_p), _cuda.stream_of(tri_data))
+    args = (_cuda.ptr(tri_data), _cuda.ptr(tri_bbox), _cuda.ptr(chunk_bbox),
+            *(_cuda.ptr(o) for o in outputs), n_chunks, height, width, s_count, layers, *band,
+            ctypes.cast(offsets, ctypes.c_void_p), _cuda.stream_of(tri_data))
+    _cuda.launch(KERNEL if layers == 1 else KERNEL_LAYERS, entry, args, "raster kernel", dev)
+
+
+def rasterize(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
+              msaa_samples: int, layers: int = 1, y_offset: int = 0):
+    """Per-sample (tri_id i32, depth f32) of a stream built by raster_stream:
+    (S, H, W) at layers == 1, else the `layers` nearest fragments of every
+    sample nearest first, (K, S, H, W); an empty layer is (-1, 1.0).
+    height/width must be multiples of 16. y_offset (a multiple of 16) makes
+    it the band of the frame's rows y_offset .. y_offset + height, equal to
+    those rows of the whole frame's raster. CPU tensors take the plain
+    version; CUDA tensors launch the kernel's planes form."""
+    _check(height, width, layers, y_offset)
+    if not tri_data.is_cuda:
+        return rasterize_plain(tri_data, tri_bbox, chunk_bbox, height, width,
+                               msaa_samples, layers, y_offset)
+    s_count = len(SAMPLE_OFFSETS[msaa_samples])
+    shape = (layers, s_count, height, width) if layers > 1 else (s_count, height, width)
+    ids = torch.empty(shape, dtype=torch.int32, device=tri_data.device)
+    depth = torch.empty(shape, dtype=torch.float32, device=tri_data.device)
     # the whole frame through vktf_raster, the entry earlier sources have too
     # (kernel_ab.py times them against these); a band through vktf_raster_band
-    entry, args = (("vktf_raster", (*operands, *tail)) if y_offset == 0
-                   else ("vktf_raster_band", (*operands, y_offset, *tail)))
-    _cuda.launch(KERNEL if layers == 1 else KERNEL_LAYERS, entry, args, "raster kernel", dev)
+    entry, band = ("vktf_raster", ()) if y_offset == 0 else ("vktf_raster_band", (y_offset,))
+    _launch(entry, (tri_data, tri_bbox, chunk_bbox), (ids, depth), height, width, msaa_samples,
+            layers, band)
     return ids, depth
+
+
+def rasterize_winner(tri_data, tri_bbox, chunk_bbox, height: int, width: int,
+                     msaa_samples: int, layers: int = 1, y_offset: int = 0):
+    """Phase A of ``rasterize``'s output, ``pipeline.pixel_winner`` of its
+    planes, with rasterize's arguments: (tri (H*W,) i32 at layers == 1, else
+    (layers, H*W); frac (H*W,) f32), row-major over the band's padded
+    pixels. CPU tensors take pixel_winner of the plain version; CUDA
+    tensors launch the kernel's winner form, which writes them from the
+    slots its threads hold and writes no planes."""
+    _check(height, width, layers, y_offset)
+    if not tri_data.is_cuda:
+        from vktf_tpu_torch.ops.pipeline import pixel_winner  # pipeline imports this module
+
+        return pixel_winner(*rasterize_plain(tri_data, tri_bbox, chunk_bbox, height, width,
+                                             msaa_samples, layers, y_offset))
+    n = height * width
+    tri = torch.empty((layers, n) if layers > 1 else (n,), dtype=torch.int32,
+                      device=tri_data.device)
+    frac = torch.empty((n,), dtype=torch.float32, device=tri_data.device)
+    _launch("vktf_raster_winner", (tri_data, tri_bbox, chunk_bbox), (tri, frac), height, width,
+            msaa_samples, layers, (y_offset,))
+    return tri, frac
