@@ -23,16 +23,14 @@ inside groups) against its plain version; shade tables of random rows at
 frames enqueued behind a sleeping stream, through Scene and through
 Engine.render; the Engine's pinned host ring over a moving camera; the
 viewer (game.main) on a small file written by the port's exporter, on the
-card against the CPU (chip_smoke.py's FRAME_MISMATCH); the present
-encodings on the card bit for bit the CPU's; sample-rate frames and the
-duck and box presets on the card against the CPU (FRAME_MISMATCH), the
-sample-rate frame's launches, the raster's band offset against the full
-frame's rows, and two gloo ranks sharing the card against its one-device
-frame; the raster's winner form against pixel_winner of its planes form at
-every (S, K) and band, on empty pixels and depth ties, and pixel-rate
-frames through it against frames through the planes. Tolerance otherwise:
-bit-equal (the
-kernels run the plain versions' operations in the same order, with fused
+card against the CPU (torch_card.FRAME_MISMATCH); the present
+encodings on the card bit for bit the CPU's; sample-rate frames on the
+card against the CPU (FRAME_MISMATCH); the raster's band offset against
+the full frame's rows; the raster's winner form against pixel_winner of
+its planes form at every (S, K) and band, on empty pixels and depth ties,
+and pixel-rate frames through it against frames through the planes. The
+paths (launches, presets, the mesh) are test_torch_cuda_paths.py's.
+Tolerance otherwise: bit-equal (the kernels run the plain versions' operations in the same order, with fused
 multiply-adds at the same places and the same CUDA math library).
 """
 
@@ -42,16 +40,11 @@ import numpy as np
 import pytest
 import torch
 
+import torch_card as tc
 import torch_parity as tp
+from torch_card import dev  # noqa: F401 (the card fixture)
 
 pytestmark = pytest.mark.cuda
-
-
-@pytest.fixture(scope="module")
-def dev():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
-    return torch.device("cuda", 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -414,16 +407,21 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(dev):
         raster.raster_stream(setup["tri_data"].T.contiguous().T, setup["bbox_rows"], perm)
 
 
-@pytest.mark.parametrize("name", ["sponza_small", "sponza_small_blend"])
-def test_render_async_returns_while_the_stream_is_busy(dev, name):
-    """Nothing on the frame path waits for the card, at K = 1 and K = 8:
-    with the stream held by a ~0.1 s sleep kernel, four render_async calls
-    return before it ends, and their frames are the synchronized one."""
+@pytest.mark.parametrize("name, rate", [("sponza_small", "pixel"), ("sponza_small_blend", "pixel"),
+                                        ("sponza_small", "sample"),
+                                        ("sponza_small_blend", "sample")],
+                         ids=["sponza_small", "sponza_small_blend", "sponza_small-sample",
+                              "sponza_small_blend-sample"])
+def test_render_async_returns_while_the_stream_is_busy(dev, name, rate):
+    """Nothing on the frame path waits for the card, at K = 1 and K = 8, at
+    pixel and at sample rate: with the stream held by a ~0.1 s sleep
+    kernel, four render_async calls return before it ends, and their
+    frames are the synchronized one."""
     from vktf_tpu_torch.config import RenderConfig
     from vktf_tpu_torch.scene.scene import Scene
 
     scene = Scene(tp.torch_assets(name), RenderConfig(width=tp.WIDTH, height=tp.HEIGHT,
-                                                      msaa_samples=4),
+                                                      msaa_samples=4, shading_rate=rate),
                   camera=tp.port_camera(), device=dev)
     assert scene.frame_program.layers == (8 if name.endswith("blend") else 1)
     want = scene.render_still()  # builds the kernels and the scene state
@@ -743,14 +741,6 @@ class _FixedDeltaTime:
         return 1.0 / 30.0
 
 
-def _quiet_log():
-    import io
-
-    from vktf_tpu_torch.log import Log
-
-    return Log(io.StringIO(), io.StringIO())
-
-
 def _small_engine(device, window=None):
     from vktf_tpu_torch.config import RenderConfig
     from vktf_tpu_torch.engine import Engine
@@ -759,8 +749,8 @@ def _small_engine(device, window=None):
 
     config = RenderConfig(width=tp.WIDTH, height=tp.HEIGHT, msaa_samples=4)
     window = window or Window(width=tp.WIDTH, height=tp.HEIGHT)
-    engine = Engine(window, config, _quiet_log(), device=device)
-    scene = Scene(tp.torch_assets("sponza_small"), config, _quiet_log(),
+    engine = Engine(window, config, tc.quiet_log(), device=device)
+    scene = Scene(tp.torch_assets("sponza_small"), config, tc.quiet_log(),
                   camera=tp.port_camera(), device=device)
     return engine, scene, window
 
@@ -816,10 +806,9 @@ def test_engine_pinned_ring_is_not_reused_early(dev):
 def test_game_main_on_the_card_matches_the_cpu(dev, msaa, tmp_path, monkeypatch):
     """The viewer on a textured box written by the port's own writer (a
     ZLIB KTX2 texture): the card's frames against the CPU's plain versions,
-    within chip_smoke.py's FRAME_MISMATCH (one u8 step on 0.5% of pixels;
-    chip_smoke.read_png decodes the dumps: the card's machine has no PIL)."""
+    within FRAME_MISMATCH (one u8 step on 0.5% of pixels; read_png decodes
+    the dumps: the card's machine has no PIL)."""
     import vktf_tpu_torch.engine
-    from chip_smoke import FRAME_MISMATCH, read_png
     from vktf_tpu_torch.game import main
     from vktf_tpu_torch.loaders.images import generate_mips
     from vktf_tpu_torch.loaders.ktx import SUPERCOMPRESSION_ZLIB, write_ktx2
@@ -846,9 +835,9 @@ def test_game_main_on_the_card_matches_the_cpu(dev, msaa, tmp_path, monkeypatch)
     want = sorted((tmp_path / "cpu").glob("frame_*.png"))
     assert [p.name for p in got] == [p.name for p in want] and len(got) == 7
     for g, c in zip(got, want):
-        a, b = read_png(g).astype(np.int16), read_png(c).astype(np.int16)
+        a, b = tc.read_png(g).astype(np.int16), tc.read_png(c).astype(np.int16)
         diff = np.abs(a - b).max(axis=-1)
-        assert diff.max() <= 1 and (diff > 0).mean() <= FRAME_MISMATCH, g.name
+        assert diff.max() <= 1 and (diff > 0).mean() <= tc.FRAME_MISMATCH, g.name
         assert (a[..., :3].max(axis=-1) > 0).mean() > 0.05
 
 
@@ -886,12 +875,11 @@ def test_present_encodings_on_the_card_equal_the_cpu(dev, fmt, scale):
 
 @pytest.mark.parametrize("name, kw", [("sponza_small", {}), ("sponza_small_blend", {}),
                                       ("sponza_small_mixed", {}),
-                                      ("sponza_small", {"aniso_taps": 2})])
+                                      ("sponza_small", {"aniso_taps": 2}),
+                                      ("sponza_small_mixed", {"aniso_taps": 2})])
 def test_sample_rate_frame_on_the_card_matches_the_cpu(dev, name, kw):
     """A sample-rate frame (4x MSAA, the layer records over every sample)
-    on the card against the CPU's, within chip_smoke.py's FRAME_MISMATCH."""
-    from chip_smoke import FRAME_MISMATCH
-
+    on the card against the CPU's, within FRAME_MISMATCH."""
     from vktf_tpu_torch.config import RenderConfig
     from vktf_tpu_torch.scene.scene import Scene
 
@@ -900,50 +888,7 @@ def test_sample_rate_frame_on_the_card_matches_the_cpu(dev, name, kw):
     frames = [Scene(tp.torch_assets(name), cfg, camera=tp.port_camera(),
                     device=device).render_still() for device in (dev, "cpu")]
     diff = np.abs(frames[0].astype(np.int16) - frames[1]).max(axis=0)
-    assert diff.max() <= 1 and (diff > 0).mean() <= FRAME_MISMATCH
-
-
-def test_sample_rate_launches_the_layer_record(dev):
-    """At K = 1 the sample-rate frame launches the layer record once, and
-    the resolve record never."""
-    from vktf_tpu_torch.config import RenderConfig
-    from vktf_tpu_torch.ops import shade_kernel
-    from vktf_tpu_torch.scene.scene import Scene
-
-    scene = Scene(tp.torch_assets("sponza_small"),
-                  RenderConfig(width=tp.WIDTH, height=tp.HEIGHT, msaa_samples=4,
-                               shading_rate="sample"),
-                  camera=tp.port_camera(), device=dev)
-    scene.render_async()
-    for k in shade_kernel.KERNELS:
-        k.launches = 0
-    scene.render_async()
-    torch.cuda.synchronize()
-    assert {k.name: k.launches for k in shade_kernel.KERNELS if k.launches} == {
-        "shade_layer": 1}
-
-
-def test_duck_frame_on_the_card_matches_the_cpu(dev):
-    """One duck frame (4,096 triangles, exactly 16 raster chunks; bench.py's
-    msaa 1 and camera) and one box frame (12 triangles, less than one
-    chunk) on the card against the CPU."""
-    from chip_smoke import FRAME_MISMATCH
-
-    from vktf_tpu_torch.config import RenderConfig
-    from vktf_tpu_torch.mathx import Camera, ViewFrustumParams
-    from vktf_tpu_torch.models.scenes import build_preset
-    from vktf_tpu_torch.scene.scene import Scene
-
-    for preset, pose in (("duck", ((0.0, 0.5, 2.0), (0.0, -0.2, -1.0))),
-                         ("box", ((0.0, 0.8, 2.4), (0.0, -0.25, -1.0)))):
-        cfg = RenderConfig(width=320, height=192, msaa_samples=1)
-        frames = [Scene(build_preset(preset), cfg,
-                        camera=Camera(*pose, ViewFrustumParams(np.radians(45.0), 320 / 192,
-                                                               0.1, 1.0e6)),
-                        device=device).render_still() for device in (dev, "cpu")]
-        diff = np.abs(frames[0].astype(np.int16) - frames[1]).max(axis=0)
-        assert (frames[1].max(axis=0) > 0).mean() > 0.05, preset
-        assert diff.max() <= 1 and (diff > 0).mean() <= FRAME_MISMATCH, preset
+    assert diff.max() <= 1 and (diff > 0).mean() <= tc.FRAME_MISMATCH
 
 
 @pytest.mark.parametrize("layers", [1, 8])
@@ -965,36 +910,3 @@ def test_band_raster_kernel(dev, layers):
         tp.assert_bits_equal(got[1][..., :n, :].cpu().numpy(),
                              depth[..., y0:y0 + n, :].cpu().numpy(), f"band rows {y0}")
         assert bool((got[0][..., n:, :] == -1).all())
-
-
-def _gloo_ranks_frame(leaves, meta, gp, sp):
-    """On every rank of a gloo group sharing the card: the courtyard's
-    sharded frame on the card."""
-    from vktf_tpu_torch.config import RenderConfig
-    from vktf_tpu_torch.parallel import make_render_mesh
-    from vktf_tpu_torch.scene.flatten import scene_from_numpy
-    from vktf_tpu_torch.scene.scene import Scene
-
-    dev = torch.device("cuda", torch.cuda.current_device())
-    scene = Scene.from_render_scene(
-        scene_from_numpy(leaves, dev), meta,
-        RenderConfig(width=tp.WIDTH, height=tp.HEIGHT, msaa_samples=4),
-        camera=tp.port_camera(), mesh=make_render_mesh(gp, sp))
-    return scene.render_still()
-
-
-@pytest.mark.parametrize("mesh", [(2, 1), (1, 2)])
-def test_gloo_ranks_on_one_card_render_the_single_device_frame(dev, mesh):
-    """Two ranks sharing the card over gloo (its collectives staged through
-    host memory): the sharded frame equals the card's single-device frame."""
-    from vktf_tpu_torch.config import RenderConfig
-    from vktf_tpu_torch.parallel import launch
-    from vktf_tpu_torch.scene.scene import Scene
-
-    leaves, meta = tp.torch_leaves("sponza_small")
-    got = launch.run(_gloo_ranks_frame, 2, leaves, meta, *mesh, device="cuda",
-                     backend="gloo", timeout_s=300)
-    want = Scene(tp.torch_assets("sponza_small"),
-                 RenderConfig(width=tp.WIDTH, height=tp.HEIGHT, msaa_samples=4),
-                 camera=tp.port_camera(), device=dev).render_still()
-    np.testing.assert_array_equal(got, want)

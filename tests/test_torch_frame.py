@@ -199,7 +199,9 @@ def test_port_sources_import_no_jax():
     pattern = ("import jax", "from jax", "import vktf_tpu\n", "import vktf_tpu.",
                "from vktf_tpu ", "from vktf_tpu.")
     files = [p for p in (REPO / "vktf_tpu_torch").rglob("*.py")
-             if "_build" not in p.parts] + [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
+             if "_build" not in p.parts] + [REPO / "chip_smoke.py", REPO / "bench_torch.py",
+                                             *(REPO / "tests").glob("test_torch_cuda*.py"),
+                                             REPO / "tests" / "torch_card.py"]
     for path in files:
         for line in path.read_text().splitlines():
             stripped = line.strip()

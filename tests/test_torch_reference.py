@@ -122,19 +122,26 @@ def test_mixed_sampler_plane_matches_the_oracle(tmp_path):
     assert_images_close(*_port_and_oracle(path, 1, (0.0, 1.6, 1.8), (0.0, -0.7, -1.0)))
 
 
-def test_chip_smoke_writes_the_test_alpha_fixtures(tmp_path):
-    """chip_smoke.py rebuilds tests/test_alpha.py's fixtures with the port's
-    writer (it imports nothing from tests/): the same files, byte for byte."""
-    import chip_smoke
+def test_the_card_tests_write_the_test_alpha_fixtures(tmp_path):
+    """tests/torch_card.py rebuilds tests/test_alpha.py's fixtures with the
+    port's writer (the card's machine has no jax): the same files, byte for
+    byte, and the oracle's budget is assert_images_close's."""
+    import inspect
+
+    import torch_card as tc
 
     (tmp_path / "jax").mkdir()
     (tmp_path / "port").mkdir()
     pairs = [(_quad_over_box(tmp_path / "jax", front, name),
-              chip_smoke.quad_over_box(tmp_path / "port", front, name))
+              tc.quad_over_box(tmp_path / "port", front, name))
              for front, name in ((OPAQUE, "opaque.gltf"), (BLEND, "blend.gltf"))]
     pairs.append((_stacked_blend_scene(tmp_path / "jax"),
-                  chip_smoke.stacked_blend_scene(tmp_path / "port")))
+                  tc.stacked_blend_scene(tmp_path / "port")))
     for want, got in pairs:
         assert got.read_bytes() == want.read_bytes(), got.name
-    assert (chip_smoke.OPAQUE_FRONT, chip_smoke.BLEND_FRONT) == (OPAQUE, BLEND)
-    assert [msaa for _, _, msaa in chip_smoke.ORACLE_FIXTURES] == [1, 4, 1, 4, 1]
+    assert (tc.OPAQUE_FRONT, tc.BLEND_FRONT) == (OPAQUE, BLEND)
+    assert [msaa for _, _, msaa in tc.ORACLE_FIXTURES] == [1, 4, 1, 4, 1]
+    defaults = {k: v.default for k, v in
+                inspect.signature(assert_images_close).parameters.items()}
+    assert (defaults["max_mean"], defaults["max_outlier_frac"], defaults["tol"]) == (
+        tc.ORACLE_MAX_MEAN, tc.ORACLE_MAX_OUTLIERS, tc.ORACLE_OUTLIER_STEP)

@@ -10,8 +10,9 @@ camera, are held to the JAX program's (Pallas in interpret mode) within
 the frame budget of test_torch_frame.py: one u8 step on at most 0.5% of
 the pixels, at 96x64: the opaque courtyard here and the translucent one
 at a forced K = 2 (the interpret-mode program at the scene's own K = 8
-takes over 90 s; chip_smoke.py runs K = 8 on the card against the CPU);
-the per-slot and two-tap courtyards in test_torch_sample_texture.py.
+takes over 90 s; test_torch_cuda_paths.py runs K = 8 on the card against
+the CPU); the per-slot and two-tap courtyards in
+test_torch_sample_texture.py.
 
 Also: the routing. The sample path takes the layer record of the scene's
 form at every K (K = 1 included), never the resolve record or the pixel

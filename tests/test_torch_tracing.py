@@ -4,10 +4,9 @@ Under ``torch.profiler`` every stage of a frame is a flat host span
 ``frame.<stage>`` (cat ``user_annotation`` in the Chrome trace, which the
 benchmark's ``benchmark/stages.py`` reads), in the frame's order, holding
 every torch op of the frame; ``frame.stream_order`` appears only in frames
-that re-sort. With no profiler and no stage timer a stage is one shared
-no-op context: no ``record_function`` call, no generator. The CUDA-event
-stage timer still times each stage it saw. The mesh program's stages are
-spans too (two gloo ranks).
+that re-sort. With no profiler a stage is one shared no-op context: no
+``record_function`` call. The mesh program's stages are spans too (two
+gloo ranks).
 """
 
 import json
@@ -124,12 +123,10 @@ def test_stream_order_is_a_span_only_when_the_frame_re_sorts(box, tmp_path):
     assert _stages(_traced(tmp_path, lambda: _render(prog, rs, moved))) == OPAQUE
 
 
-def test_no_profiler_and_no_timer_make_no_span(box, monkeypatch):
-    """Off, a stage is the one shared no-op context: record_function and
-    the timer's generator are never reached, and the frame is the same."""
+def test_no_profiler_makes_no_span(box, monkeypatch):
+    """Off, a stage is the one shared no-op context: record_function is
+    never reached, and the frame is the same."""
     import contextlib
-
-    from vktf_tpu_torch.ops import pipeline
 
     prog, rs = _program(box)
     want = _render(prog, rs)
@@ -139,43 +136,9 @@ def test_no_profiler_and_no_timer_make_no_span(box, monkeypatch):
 
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
-    monkeypatch.setattr(pipeline.FrameProgram, "_timed", refuse)
     stage = prog._stage("setup")
     assert isinstance(stage, contextlib.nullcontext) and stage is prog._stage("present")
     assert torch.equal(_render(prog, rs), want)
-
-
-class _HostEvent:
-    """A stand-in for torch.cuda.Event on the CPU: the host clock at record."""
-
-    def __init__(self, enable_timing=False):
-        self.at = None
-
-    def record(self, stream=None):
-        import time
-
-        self.at = time.perf_counter()
-
-    def elapsed_time(self, end):
-        return (end.at - self.at) * 1e3
-
-
-def test_stage_timer_times_every_stage_it_saw(box, tmp_path, monkeypatch):
-    """With the timer set under a profiler, the timer and the trace see the
-    same stages, and each has a millisecond figure."""
-    from vktf_tpu_torch.ops import pipeline
-
-    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
-    prog, rs = _program(box, peel_layers=8)
-    prog.timer = pipeline._StageTimer()
-    events = _traced(tmp_path, lambda: _render(prog, rs))
-    millis = prog.timer.millis()
-    assert list(millis) == _stages(events) == OPAQUE[:-1] + ["composite", "present"]
-    assert all(isinstance(v, float) and v >= 0.0 for v in millis.values())
-    prog.timer = pipeline._StageTimer()
-    _render(prog, rs)
-    assert list(prog.timer.millis()) == [s for s in OPAQUE[:-1] + ["composite", "present"]
-                                         if s != "stream_order"]
 
 
 def _mesh_stages(leaves, meta, config, position, direction):

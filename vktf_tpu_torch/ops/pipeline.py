@@ -67,7 +67,7 @@ scene_update, setup, stream_order (only in a frame that re-sorts), raster
 composite (K > 1 and sample rate) and present. The mesh program's stages
 are spans likewise (``parallel/tiles.py``); there phase A is a stage of its
 own, winner, after the devices' planes are merged. With no profiler
-running and no stage timer set a stage is one shared no-op context.
+running a stage is one shared no-op context.
 
 The JAX program ran the setup kernel twice (a second pass over
 Morton-permuted inputs) and split the shade into two programs; both were
@@ -76,9 +76,7 @@ TPU layout economies that leave the frame unchanged, and are not copied.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-from typing import Optional
 
 import numpy as np
 import torch
@@ -242,28 +240,6 @@ def shade_form(config: RenderConfig, meta: SceneMeta) -> ShadeForm:
     return ShadeForm("fused" if fused else "classic", taps)
 
 
-class _StageTimer:
-    """CUDA-event stage timing, on only when asked for (one event pair
-    per stage; read after the frame synchronizes)."""
-
-    def __init__(self):
-        self.marks: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
-
-    def start(self, name: str):
-        begin = torch.cuda.Event(enable_timing=True)
-        begin.record()
-        self.marks.append((name, begin, None))
-
-    def stop(self):
-        name, begin, _ = self.marks[-1]
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        self.marks[-1] = (name, begin, end)
-
-    def millis(self) -> dict:
-        return {name: begin.elapsed_time(end) for name, begin, end in self.marks}
-
-
 class FrameProgram:
     """Renders one presented frame per call from a RenderScene and a
     camera, on the scene's device (plain versions of every kernel on the
@@ -286,7 +262,6 @@ class FrameProgram:
         self._sort_vp = None
         self._centers = None
         self._background = None
-        self.timer: Optional[_StageTimer] = None
 
     def _maybe_scene_update(self, scene: RenderScene):
         """The scene update, rerun when a leaf it reads is replaced or edited
@@ -323,26 +298,14 @@ class FrameProgram:
         return self._perm
 
     def _stage(self, name: str):
-        """Stage `name` of the frame: the profiler span ``frame.<name>`` (the
-        shared no-op context while no profiler runs) and, while ``timer``
-        is set, the stage's CUDA-event pair. Stages do not nest: the timer
-        closes its last mark."""
-        span = profiling.annotate("frame." + name)
-        if self.timer is None:
-            return span
-        return self._timed(span, name)
-
-    @contextlib.contextmanager
-    def _timed(self, span, name: str):
-        with span:
-            self.timer.start(name)
-            yield
-            self.timer.stop()
+        """Stage `name` of the frame: the profiler span ``frame.<name>``, or
+        the shared no-op context while no profiler runs."""
+        return profiling.annotate("frame." + name)
 
     def __call__(self, scene: RenderScene, view_projection,
                  camera_position) -> torch.Tensor:
-        # the scene's card is current for the whole frame: its launches and
-        # its stage events go there whichever device the caller had current
+        # the scene's card is current for the whole frame: its launches go
+        # there whichever device the caller had current
         with _cuda.on_device(scene.device):
             return self._frame(scene, view_projection, camera_position)
 

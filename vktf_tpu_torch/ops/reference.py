@@ -4,7 +4,7 @@ The port's copy of ``vktf_tpu/ops/reference.py``, the package's
 independent renderer: the same rendering semantics (glTF PBR MR per
 src/game/shaders/fragment.glsl, Vulkan raster rules) written as plain
 per-triangle scanline numpy in float64, the oracle the port's frames are
-held to on the CPU and on the card (``chip_smoke.py``).
+held to on the CPU and on the card (``tests/test_torch_cuda_paths.py``).
 
 Deliberately structured differently from the production path (screen-space
 barycentrics + per-triangle python loops vs homogeneous edge functions +

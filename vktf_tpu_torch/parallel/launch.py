@@ -4,9 +4,8 @@
     (torch.multiprocessing, spawn), sets each rank's device, initialises the
     default process group through a rendezvous file in a temporary
     directory (no port, so concurrent runs cannot collide), calls
-    ``fn(*args)`` on every rank and returns rank 0's result. Tests and
-    ``chip_smoke.py`` use it; ``fn`` builds its mesh with
-    ``tiles.make_render_mesh``.
+    ``fn(*args)`` on every rank and returns rank 0's result. The tests
+    use it; ``fn`` builds its mesh with ``tiles.make_render_mesh``.
   * ``launcher_mesh(gp, sp, device)``, for the command lines: a process
     group already initialised (``run``) is used as it is; under ``torchrun``
     the launcher's environment (RANK, WORLD_SIZE, LOCAL_RANK,
