@@ -11,7 +11,7 @@ version at the inputs it is timed on (its ``max_abs_err``), which guards
 the number it prints. In order, it:
   1. reports the card (nvidia-smi name and power limit);
   2. builds the CUDA sources of vktf_tpu_torch/csrc (one nvcc each, in
-     parallel; nineteen kernel records) and prints each source's ptxas
+     parallel; twenty kernel records) and prints each source's ptxas
      report (registers, stack frame, spill bytes of every kernel); builds
      the native host runtime (csrc/host/vktf_native.cpp, g++); both timed;
   3. builds the sponza preset with the port's numpy builder, uploads it and
@@ -29,15 +29,18 @@ the number it prints. In order, it:
      it and beside its bound; setup and the shade table also as the bare C
      launch on preallocated outputs (CUDA events around launches queued
      behind a sleep kernel) and the profiler's kernel time; the raster's
-     staging counts (staging_counts); the raster record is the winner form
+     staging counts (staging_counts); the group level of its chunk cull
+     (raster_groups) bit for bit against its plain version and timed; the
+     raster record is the winner form
      (rasterize_winner, which the one-card pixel-rate frame runs), bit for
      bit pixel_winner of its planes form and held to pixel_winner of the
      plain version's planes, timed beside the planes form (winner_held);
   5a. the raster prologue (raster_stream) bit for bit against its plain
      version and timed beside its byte bound, at the sponza's stream and at
      the 2160p benchmark cell's (benchmark/configs' flythrough, 2,979,744
-     triangles, built by the benchmark's scene generator), and the winner
-     form there at K = 1 and K = 8;
+     triangles, built by the benchmark's scene generator), and there the
+     raster's staging counts, the group level, and the winner form at K = 1
+     and K = 8;
   6. the translucent path: the sponza with its curtain and clutter
      materials BLEND at alpha 0.5 (K = 8); the K-layer raster and the
      layer shade held and timed likewise;
@@ -105,8 +108,9 @@ SHADE_LAYER_MISMATCH = 1e-5
 SHADE_LAYER_ULP = 4
 FRAMES_IN_FLIGHT = 4
 # records a K = 1 frame launches once each: setup, the raster prologue,
-# raster, shade table, shade (the first entries of main's kernel list)
-K1_RECORDS = 5
+# raster, the group level of its cull, shade table, shade (the first
+# entries of main's kernel list)
+K1_RECORDS = 6
 STAGE_FRAMES = 3  # frames profiled for the stage times
 # torch.cuda._sleep cycles holding the stream: ~0.1 s at the H100's clock
 SLEEP_CYCLES = 200_000_000
@@ -332,6 +336,9 @@ def stream_2160p(dev) -> None:
     log(f"raster stream, 2160p cell: scene built in {time.perf_counter() - t0:.1f} s")
     stream_held("2160p cell", st["setup"]["tri_data"], st["setup"]["bbox_rows"], st["perm"])
     cfg = scn.config
+    log("raster staging, 2160p cell:",
+        json.dumps(staging_counts(st["stream"], cfg.padded_height, cfg.padded_width)))
+    groups_held("2160p cell", st["stream"][2])
     for layers in (1, 8):
         winner_held("2160p cell", st["stream"], cfg.padded_height, cfg.padded_width,
                     cfg.msaa_samples, layers)
@@ -339,21 +346,63 @@ def stream_2160p(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def groups_held(what: str, chunk_bbox) -> tuple:
+    """The group level of the raster's chunk cull at one stream: the group
+    kernel's bboxes bit for bit against chunk_group_bbox_plain's, then both
+    timed beside the byte bound (the chunk bboxes read once, the group
+    bboxes written once). Returns (kernel ms through the wrapper, plain ms,
+    (bound ms, what bounds it))."""
+    from vktf_tpu_torch.ops import raster
+
+    got, want = raster.chunk_group_bbox(chunk_bbox), raster.chunk_group_bbox_plain(chunk_bbox)
+    n_bad = bits_mismatch(got, want)[0] if got.shape == want.shape else -1
+    require(n_bad == 0, f"raster groups {what}: bit-equal to the plain version ({n_bad} differ)")
+    kernel_ms = cuda_ms(lambda: raster.chunk_group_bbox(chunk_bbox), 50)
+    alone_ms = profiled_ms(lambda: raster.chunk_group_bbox(chunk_bbox), 50, "chunk_group_kernel")
+    plain_ms = cuda_ms(lambda: raster.chunk_group_bbox_plain(chunk_bbox), 20)
+    bound_ms, bound_by = bound_pair = bound((chunk_bbox.numel() + got.numel()) * 4,
+                                            chunk_bbox.numel())
+    alone = "not measured" if alone_ms is None else f"{alone_ms:.4f} ms"
+    log(f"raster groups, {what}: {chunk_bbox.shape[1]} chunks, {got.shape[1]} groups of "
+        f"{raster.CHUNK_GROUP}; bit-equal to the plain version; kernel {kernel_ms:.4f} ms "
+        f"through the wrapper (CUDA events), {alone} alone (profiler); plain {plain_ms:.4f} ms; "
+        f"bound {bound_ms:.5f} ms ({bound_by})")
+    return kernel_ms, plain_ms, bound_pair
+
+
 def staging_counts(stream, height: int, width: int, block: int = 16) -> dict:
     """What the raster kernel stages for this stream, counted in torch: per
-    16x16 block its hit chunks (chunk bbox overlaps the block) and its
-    touching triangles (valid, bbox overlaps the block); per frame the bytes
-    its triangle tests read into registers (5 rows of 1 KB per hit chunk)
-    and the bytes it stages into shared memory (24 floats per touching
-    triangle, 19 of them gathered by cp.async), beside the earlier design,
-    which staged all 32 rows of every hit chunk (32 KB)."""
+    16x16 block its hit groups and hit chunks (group or chunk bbox overlaps
+    the block), the bbox tests of its two-level cull (every group bbox,
+    then each chunk of a hit group) beside those of a test of every chunk
+    bbox, and its touching triangles (valid, bbox overlaps the block); per
+    frame the bytes its triangle tests read into registers (5 rows of 1 KB
+    per hit chunk) and the bytes it stages into shared memory (24 floats per
+    touching triangle, 19 of them gathered by cp.async), beside the earlier
+    design, which staged all 32 rows of every hit chunk (32 KB)."""
+    from vktf_tpu_torch.ops.raster import CHUNK_GROUP, chunk_group_bbox_plain
+
     tri_data, tri_bbox, chunk_bbox = stream
     dev = tri_data.device
     bx = torch.arange(0, width, block, device=dev, dtype=torch.float32)
     by = torch.arange(0, height, block, device=dev, dtype=torch.float32)
-    hx = (chunk_bbox[0][None] < (bx + block)[:, None]) & (chunk_bbox[2][None] > bx[:, None])
-    hy = (chunk_bbox[1][None] < (by + block)[:, None]) & (chunk_bbox[3][None] > by[:, None])
-    hits = hy.double() @ hx.double().T  # (blocks y, blocks x)
+
+    def overlaps(bbox, weight=None):
+        """(blocks y, blocks x): the bboxes overlapping each block, each
+        counted as its weight (1 by default)."""
+        hx = (bbox[0][None] < (bx + block)[:, None]) & (bbox[2][None] > bx[:, None])
+        hy = (bbox[1][None] < (by + block)[:, None]) & (bbox[3][None] > by[:, None])
+        hx = hx.double() if weight is None else hx.double() * weight[None]
+        return hy.double() @ hx.T
+
+    n_chunks = chunk_bbox.shape[1]
+    group_bbox = chunk_group_bbox_plain(chunk_bbox)
+    n_groups = group_bbox.shape[1]
+    # the chunks a group holds (the last one may be ragged)
+    sizes = (n_chunks - CHUNK_GROUP * torch.arange(n_groups, device=dev)).clamp(max=CHUNK_GROUP)
+    hits = overlaps(chunk_bbox)
+    group_hits = overlaps(group_bbox)
+    group_tests = overlaps(group_bbox, sizes.double())
     box = tri_bbox[:4, tri_data[15] >= 0].double()
     # the blocks a bbox touches: 16 i < x1 and 16 i + 16 > x0
     i0 = torch.floor(box[0] / block).clamp(0, bx.numel()).long()
@@ -368,7 +417,11 @@ def staging_counts(stream, height: int, width: int, block: int = 16) -> dict:
         diff.index_put_((jj, ii), sign * ones, accumulate=True)
     touch = diff.cumsum(0).cumsum(1)[:-1, :-1]
     n_hits, n_touch = float(hits.sum()), float(touch.sum())
-    return {"blocks": hits.numel(), "chunks": chunk_bbox.shape[1],
+    return {"blocks": hits.numel(), "chunks": n_chunks, "groups": n_groups,
+            "hit_groups_per_block_mean": round(float(group_hits.sum()) / hits.numel(), 3),
+            "hit_groups_per_block_max": int(group_hits.max()),
+            "chunk_tests_per_block_flat": n_chunks,
+            "chunk_tests_per_block": round(n_groups + float(group_tests.sum()) / hits.numel(), 3),
             "hit_chunks_per_block_mean": round(n_hits / hits.numel(), 3),
             "hit_chunks_per_block_max": int(hits.max()),
             "touching_tris_per_block_mean": round(n_touch / hits.numel(), 3),
@@ -586,8 +639,8 @@ def mesh_ranks(cases, inputs, frames: int, flight: int) -> dict:
     from vktf_tpu_torch.scene.scene import Scene
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    kernels = [setup_kernel.KERNEL, raster.KERNEL_STREAM, raster.KERNEL, raster.KERNEL_LAYERS,
-               shade_table.KERNEL, *shade_kernel.KERNELS]
+    kernels = [setup_kernel.KERNEL, raster.KERNEL_STREAM, raster.KERNEL, raster.KERNEL_GROUPS,
+               raster.KERNEL_LAYERS, shade_table.KERNEL, *shade_kernel.KERNELS]
     out = {}
     for tag, key, gp, sp, overrides in cases:
         path, meta, (width, height) = inputs[key]
@@ -735,8 +788,9 @@ def main() -> int:
     log("card:", card, "|", torch.cuda.get_device_name(0), "| torch",
         torch.__version__, "cuda", torch.version.cuda)
     # the K = 1 path's records, then the K-layer raster and every other shade
-    kernels = [setup_kernel.KERNEL, raster.KERNEL_STREAM, raster.KERNEL, shade_table.KERNEL,
-               shade_kernel.KERNEL, raster.KERNEL_LAYERS, *shade_kernel.KERNELS[1:]]
+    kernels = [setup_kernel.KERNEL, raster.KERNEL_STREAM, raster.KERNEL, raster.KERNEL_GROUPS,
+               shade_table.KERNEL, shade_kernel.KERNEL, raster.KERNEL_LAYERS,
+               *shade_kernel.KERNELS[1:]]
     sources = list(dict.fromkeys(k.source for k in kernels))
 
     # ---- 2. build -------------------------------------------------------
@@ -937,6 +991,8 @@ def main() -> int:
     record(raster.KERNEL, w_err, w_ms,
            cuda_ms(lambda: pipeline.pixel_winner(*raster.rasterize_plain(*r_args)), 2), w_bound)
     del ids_p, depth_p
+    # the group level of the cull, which every raster entry launches first
+    record(raster.KERNEL_GROUPS, 0.0, *groups_held("sponza", stream[2]))
 
     # ---- 5a. the raster prologue against its plain version ---------------
     record(raster.KERNEL_STREAM, 0.0,

@@ -25,6 +25,9 @@ c75c6c0: they read the (I, 16) instance rows by an int32 instance index,
 and setup takes a null id row. A parent from before (``--parent-args
 gathered``) is called through its own entries with its own argument lists (the per-triangle (16, T) matrix rows gathered once, and
 an explicit id row), on outputs this script allocates like the wrappers.
+The raster's C entries took a group bbox buffer after commit 40138de: a
+parent's raster library without the group entry (``vktf_raster_groups``)
+is called through this tree's wrappers with that argument dropped.
 """
 
 from __future__ import annotations
@@ -111,6 +114,37 @@ def c_entries(opaque, kind: str):
     fixed_setup, fixed_table = setup_outs(), torch.empty((t, 64), device=dev)
     return {"setup.cu": (setup_call, lambda lib: setup_fn(lib, fixed_setup)),
             "shade_table.cu": (table_call, lambda lib: table_fn(lib, fixed_table))}
+
+
+class WithoutGroupBuffer:
+    """A raster library from before the group level of the chunk cull: its
+    entries take every argument of this tree's but the group bbox buffer
+    (the fourth), which a call through this tree's wrapper drops."""
+
+    def __init__(self, lib):
+        from vktf_tpu_torch.ops import _cuda
+
+        self._fns = {}
+        for entry, argtypes in _cuda._entries["raster.cu"].items():
+            fn = getattr(lib, entry, None)
+            if fn is not None:
+                fn.argtypes = argtypes[:3] + argtypes[4:]
+                self._fns[entry] = fn
+
+    def __getattr__(self, entry):
+        fn = self._fns[entry]
+        return lambda *args: fn(*args[:3], *args[4:])
+
+
+def load_parent(source: str, parent: Path):
+    """A parent's library of one source, its raster entries adapted to this
+    tree's argument lists where they predate the group bbox buffer."""
+    from vktf_tpu_torch.ops import _cuda
+
+    lib = _cuda.load(source, parent)
+    if source == "raster.cu" and not hasattr(lib, "vktf_raster_groups"):
+        return WithoutGroupBuffer(lib)
+    return lib
 
 
 SOURCES = ("setup.cu", "raster_stream.cu", "raster.cu", "shade_table.cu", "shade.cu")
@@ -229,7 +263,7 @@ def main() -> int:
     for name, parent in parents.items():
         _cuda.build(changed[name], parent)
         libs = {"new": {s: _cuda.library(s) for s in changed[name]},
-                "parent": {s: _cuda.load(s, parent) for s in changed[name]}}
+                "parent": {s: load_parent(s, parent) for s in changed[name]}}
         for kernel, call in recs:
             if kernel.source not in changed[name]:
                 continue

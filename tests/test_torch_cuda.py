@@ -18,7 +18,11 @@ chunks overlap a block with few touching triangles, chunks whose triangles
 all touch one block (full compacted lists), and a 300-deep equal-depth
 stack shuffled across chunks; the raster prologue's streams (the small
 sponza's, ragged and single-chunk streams, padding and invalid triangles
-inside groups) against its plain version; shade tables of random rows at
+inside groups) against its plain version; the group level of the raster's
+chunk cull (ragged, padding and 1,031 groups) against its plain version, and
+both raster forms on streams that reach every branch of the two-level cull
+(a block hit by chunks of 12 groups, 1,030 groups of mostly padding, chunks
+of 20 groups hitting every block); shade tables of random rows at
 1, 129 and 896 triangles and over 1,000 instances; setup with and without an id row;
 frames enqueued behind a sleeping stream, through Scene and through
 Engine.render; the Engine's pinned host ring over a moving camera; the
@@ -674,6 +678,129 @@ def test_raster_equal_depth_stack_across_chunks(dev, msaa):
                                              perm=rng.permutation(t_pad))
     assert (ids[:, :, 10, 20] // 2 == torch.arange(8, device=dev)[:, None]).all()
     assert bool((depth[:, :, 10, 20] == depth[0, 0, 10, 20]).all())
+
+
+@pytest.mark.parametrize("n_chunks", [1, 33, 70, 1030 * 32 + 5])
+def test_raster_group_kernel(dev, n_chunks):
+    """The group level of the raster's chunk cull against its plain version,
+    bit for bit, one launch a call: one chunk, a ragged last group of one
+    chunk, a group of padding chunks (group 1) and one mixing padding and
+    real chunks (group 0), and more groups than a round of the raster
+    tests (1,031)."""
+    from vktf_tpu_torch.ops import raster
+
+    rng = np.random.default_rng(n_chunks)
+    x0, y0 = rng.integers(0, 3840, n_chunks), rng.integers(0, 2160, n_chunks)
+    box = np.stack([x0, y0, x0 + rng.integers(1, 200, n_chunks),
+                    y0 + rng.integers(1, 200, n_chunks)]).astype(np.float32)
+    big = np.float32(2.0 ** 30)
+    box[:, 32:64] = np.array([big, big, -big, -big])[:, None]
+    box[:, 3:20:2] = np.array([big, big, -big, -big])[:, None]
+    chunk_bbox = torch.from_numpy(box).to(dev)
+    before = raster.KERNEL_GROUPS.launches
+    got = raster.chunk_group_bbox(chunk_bbox)
+    assert raster.KERNEL_GROUPS.launches == before + 1
+    want = raster.chunk_group_bbox_plain(chunk_bbox)
+    assert got.shape == want.shape == (4, -(-n_chunks // raster.CHUNK_GROUP))
+    tp.assert_bits_equal(got.cpu().numpy(), want.cpu().numpy(), "group_bbox")
+    if n_chunks > 64:
+        assert got[:, 1].tolist() == [big, big, -big, -big]
+
+
+def _padded_stream(dev, tris, z, at, t_pad, width, height):
+    """The stream of pixel-space triangles with triangle i at stream
+    position at[i] and chunk padding at every other of t_pad positions."""
+    from vktf_tpu_torch.ops import raster
+
+    s = tp.setup_px(tris, width, height, z)
+    perm = np.empty(t_pad, np.int64)
+    perm[at] = np.arange(len(tris))
+    perm[np.setdiff1d(np.arange(t_pad), at)] = np.arange(len(tris), t_pad)
+    assert bool(s["valid"].all())
+    return raster.raster_stream(s["tri_data"].to(dev), s["bbox_rows"].to(dev),
+                                torch.as_tensor(perm, device=dev))
+
+
+def _group_cull_case(case):
+    """(triangles, depths, stream positions, t_pad, width, height) of a
+    stream for the two-level chunk cull; groups are 32 chunks of 256."""
+    rng = np.random.default_rng(8)
+    group = 32 * 256
+    tris, z, at = [], [], []
+    if case == "over_8_groups":
+        # block (1, 1) hit by two chunks of each of 12 groups, each chunk also
+        # holding a triangle far to the right; 64x48
+        for g in range(12):
+            for c in (5, 20):
+                base = g * group + c * 256
+                for k in range(4):
+                    cx, cy = 16.0 + 0.125 * rng.integers(8, 120, size=2)
+                    tris.append(_small_tri(cx, cy, 0.125 * rng.integers(8, 48)))
+                    z.append(rng.integers(1, 255) / 256.0)
+                    at.append(base + 7 * k)
+                tris.append(_small_tri(56.0, 40.0, 2.0))
+                z.append(0.5)
+                at.append(base + 255)
+        return tris, z, at, 12 * group, 64, 48
+    if case == "over_1024_groups":
+        # 1,030 groups of padding but for a few triangles in groups 3, 1024
+        # and the last two, the last group ragged (5 chunks); 64x48
+        n_chunks = 1029 * 32 + 5
+        for chunk in (3 * 32 + 1, 1024 * 32, 1028 * 32 + 31, n_chunks - 1):
+            for k in range(6):
+                cx, cy = 0.125 * rng.integers(16, 496), 0.125 * rng.integers(16, 368)
+                tris.append(_small_tri(cx, cy, 0.125 * rng.integers(8, 64)))
+                z.append(rng.integers(1, 255) / 256.0)
+                at.append(chunk * 256 + 40 * k)
+        return tris, z, at, n_chunks * 256, 64, 48
+    # every_block: a quad over the whole 128x64 frame in one chunk of each of
+    # 20 groups, at seeded depths (some equal), and small triangles beside
+    for g in range(20):
+        base = g * group + int(rng.integers(0, 32)) * 256
+        tris += [[(0, 0), (128, 64), (128, 0)], [(0, 0), (0, 64), (128, 64)]]
+        z += [rng.integers(1, 12) / 16.0] * 2
+        at += [base + 3, base + 100]
+        cx, cy = 0.5 * rng.integers(4, 252), 0.5 * rng.integers(4, 124)
+        tris.append(_small_tri(cx, cy, 3.0))
+        z.append(rng.integers(1, 16) / 16.0)
+        at.append(base + 200)
+    return tris, z, at, 20 * group, 128, 64
+
+
+@pytest.mark.parametrize("layers", [1, 8])
+@pytest.mark.parametrize("case", ["over_8_groups", "over_1024_groups", "every_block"])
+def test_raster_group_cull(dev, case, layers):
+    """Both forms of the raster on streams that reach every branch of the
+    two-level chunk cull, bit for bit the plain version (the planes) and
+    pixel_winner of it (the winner form): a block hit by chunks of 12
+    groups (two rounds of chunk tests), a stream of 1,030 groups (two
+    rounds of group tests) with its few triangles at its ends, and chunks
+    of 20 groups hitting every block."""
+    from vktf_tpu_torch.ops import pipeline, raster
+
+    tris, z, at, t_pad, width, height = _group_cull_case(case)
+    stream = _padded_stream(dev, tris, z, at, t_pad, width, height)
+    groups = raster.chunk_group_bbox(stream[2])
+    assert groups.shape[1] == {"over_8_groups": 12, "over_1024_groups": 1030,
+                               "every_block": 20}[case]
+    got = raster.rasterize(*stream, height, width, 4, layers)
+    want = raster.rasterize_plain(*stream, height, width, 4, layers)
+    assert torch.equal(got[0], want[0])
+    tp.assert_bits_equal(got[1].cpu().numpy(), want[1].cpu().numpy(), "depth")
+    _assert_winners_equal(raster.rasterize_winner(*stream, height, width, 4, layers),
+                          pipeline.pixel_winner(*want), case)
+    front = got[0] if layers == 1 else got[0][0]
+    covered = float((front >= 0).float().mean())
+    if case == "every_block":
+        assert covered == 1.0
+        if layers > 1:
+            assert bool((got[0][7] >= 0).all())
+    else:
+        assert 0.0 < covered < 1.0
+    if case == "over_8_groups":  # every group reaches block (1, 1)
+        hit = ((groups[0] < 32) & (groups[1] < 32) & (groups[2] > 16) & (groups[3] > 16))
+        assert bool(hit.all())
+        assert bool((front[:, 16:32, 16:32] >= 0).any())
 
 
 def _setup_like_rows(dev, t, seed, invalid_share):

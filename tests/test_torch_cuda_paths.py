@@ -46,8 +46,8 @@ SAMPLE = {"shading_rate": "sample"}
 def _records():
     from vktf_tpu_torch.ops import raster, setup_kernel, shade_kernel, shade_table
 
-    return [setup_kernel.KERNEL, raster.KERNEL_STREAM, raster.KERNEL, raster.KERNEL_LAYERS,
-            shade_table.KERNEL, *shade_kernel.KERNELS]
+    return [setup_kernel.KERNEL, raster.KERNEL_STREAM, raster.KERNEL, raster.KERNEL_GROUPS,
+            raster.KERNEL_LAYERS, shade_table.KERNEL, *shade_kernel.KERNELS]
 
 
 def _launches(fn) -> dict:
@@ -64,7 +64,7 @@ def _launches(fn) -> dict:
 def _frame_records(layers: int, shade: str) -> tuple:
     """The records a one-device frame launches once each."""
     return ("setup", "raster_stream", "raster" if layers == 1 else "raster_layers",
-            "shade_table", shade)
+            "raster_groups", "shade_table", shade)
 
 
 def _assets(name: str):
@@ -149,8 +149,9 @@ def _form_id(name: str, kw: dict) -> str:
 @pytest.mark.parametrize("name, kw, shade", FORMS, ids=[_form_id(n, kw) for n, kw, _ in FORMS])
 def test_a_frame_launches_each_of_its_records_once(dev, name, kw, shade):
     """Every form of the frame on the card: setup, the raster prologue, the
-    raster of its K, the shade table and the shade record of its form, once
-    a frame each, and no other record (the translucent variants at K = 8)."""
+    raster of its K with the group level of its cull, the shade table and
+    the shade record of its form, once a frame each, and no other record
+    (the translucent variants at K = 8)."""
     scene = _scene(dev, name, **kw)
     layers = scene.frame_program.layers
     assert layers == (8 if "blend" in name else 1)
@@ -301,7 +302,8 @@ PRESETS = {"box": 1, "duck": 1, "helmet": 4, "flythrough": 4}
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_preset_on_the_card_launches_once_and_matches_the_cpu(dev, preset):
     """Each preset bench_torch.py measures: its frame launches setup, the
-    prologue, raster, shade table and shade once each and nothing else,
+    prologue, raster and its group level, shade table and shade once each
+    and nothing else,
     and equals the CPU's within FRAME_MISMATCH."""
     import bench_torch
     from vktf_tpu_torch.config import RenderConfig
@@ -428,8 +430,8 @@ def test_alpha_fixture_on_the_card_matches_the_oracle(dev, tag, fixture, msaa, t
                                 peel_layers=max(ref.meta.peel_layers, 2))
     assert (expected[..., :3].max(axis=-1) > 0).mean() > 0.2
     raster = "raster" if scene.frame_program.layers == 1 else "raster_layers"
-    assert launched == {r: 1 for r in ("setup", "raster_stream", raster, "shade_table",
-                                       "shade_layer")}
+    assert launched == {r: 1 for r in ("setup", "raster_stream", raster, "raster_groups",
+                                       "shade_table", "shade_layer")}
     mean, outliers = tc.image_difference(frames[0], expected)
     assert mean <= tc.ORACLE_MAX_MEAN and outliers <= tc.ORACLE_MAX_OUTLIERS, (mean, outliers)
 
@@ -516,13 +518,14 @@ def _mesh_frames(backend: str) -> dict:
 
 def _assert_mesh_case(dev, frames: dict, case) -> None:
     """The case's frame equals the one-device frame at its rate bit for
-    bit, and every rank launched setup, the prologue, a raster, the shade
-    table and a shade record twice (at sample rate a layer record)."""
+    bit, and every rank launched setup, the prologue, a raster with the
+    group level of its cull, the shade table and a shade record twice (at
+    sample rate a layer record)."""
     tag, name, _gp, _sp, kw = case
     frame, every = frames[tag]
     np.testing.assert_array_equal(frame, _scene(dev, name, **kw).render_still())
     for launched in every:
-        assert len(launched) == 5 and set(launched.values()) == {2}, launched
+        assert len(launched) == 6 and set(launched.values()) == {2}, launched
         shade = [r for r in launched if r.startswith("shade") and r != "shade_table"]
         assert len(shade) == 1
         if kw:

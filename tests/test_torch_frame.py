@@ -141,8 +141,8 @@ def test_plain_versions_count_no_launches():
     from vktf_tpu_torch.ops import raster, setup_kernel, shade_kernel, shade_table
     from vktf_tpu_torch.scene.scene import Scene
 
-    kernels = (setup_kernel.KERNEL, raster.KERNEL_STREAM, raster.KERNEL, raster.KERNEL_LAYERS,
-               shade_table.KERNEL, *shade_kernel.KERNELS)
+    kernels = (setup_kernel.KERNEL, raster.KERNEL_STREAM, raster.KERNEL, raster.KERNEL_GROUPS,
+               raster.KERNEL_LAYERS, shade_table.KERNEL, *shade_kernel.KERNELS)
     before = [k.launches for k in kernels]
     for layers in (1, 2):
         for texture in ({}, {"aniso_taps": 2}, {"shade_fused_pool": False},

@@ -7,7 +7,8 @@ triangle id exactly and on its depth bit for bit wherever the ids agree
 (they all do).
 
 The CUDA kernel's staging counts (chip_smoke.staging_counts) against a
-block-by-block count.
+block-by-block count, and the plain group level of its chunk cull
+(``chunk_group_bbox_plain``) against the union of each group's chunks.
 
 The winner form's wrapper (``rasterize_winner``) on the CPU against the
 JAX package's phase A (``vktf_tpu.ops.pipeline._tiled_winner``) of the same
@@ -174,11 +175,41 @@ class TestFillRulesHandComputed:
         np.testing.assert_array_equal(ids >= 0, expected)
 
 
-def test_staging_counts_match_a_direct_count():
-    """chip_smoke.staging_counts (what the CUDA raster lists per 16x16
-    block) against a block-by-block count on a seeded stream of small and
-    block-spanning triangles."""
-    import chip_smoke
+@pytest.mark.parametrize("n_chunks", [1, 32, 70])
+def test_chunk_group_bbox_plain_is_the_union_of_its_chunks(n_chunks):
+    """The group level of the raster's cull: group g is the union of chunks
+    32 g .. 32 g + 31 (a ragged last group of the chunks it has), and a
+    group of padding chunks is the empty bbox."""
+    import torch
+
+    from vktf_tpu_torch.ops.raster import CHUNK_GROUP, chunk_group_bbox, chunk_group_bbox_plain
+
+    rng = np.random.default_rng(n_chunks)
+    x0, y0 = rng.integers(0, 300, n_chunks), rng.integers(0, 200, n_chunks)
+    box = np.stack([x0, y0, x0 + rng.integers(1, 90, n_chunks),
+                    y0 + rng.integers(1, 90, n_chunks)]).astype(np.float32)
+    big = np.float32(2.0 ** 30)
+    box[:, 32:64] = np.array([big, big, -big, -big])[:, None]  # group 1: padding
+    got = chunk_group_bbox(torch.from_numpy(box))
+    n_groups = -(-n_chunks // CHUNK_GROUP)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (4, n_groups)
+    assert torch.equal(got, chunk_group_bbox_plain(torch.from_numpy(box)))
+    for g in range(n_groups):
+        part = box[:, CHUNK_GROUP * g:CHUNK_GROUP * (g + 1)]
+        want = np.concatenate([part[:2].min(axis=1), part[2:].max(axis=1)])
+        np.testing.assert_array_equal(got[:, g].numpy(), want)
+    if n_chunks > 32:
+        np.testing.assert_array_equal(got[:, 1].numpy(), [big, big, -big, -big])
+
+
+def _staging_stream(case):
+    """600 seeded small and block-spanning triangles at 128x64, in stream
+    order ("sorted": 3 chunks, one group), or the same order spread over 70
+    chunks of padding, a third of the valid ones in each group ("padded": 3
+    groups, the last ragged, the triangles at seeded positions of their
+    group)."""
+    import torch
+
     from vktf_tpu_torch.ops.raster import raster_stream, stream_perm
 
     rng = np.random.default_rng(11)
@@ -188,24 +219,62 @@ def test_staging_counts_match_a_direct_count():
         r = 0.5 * rng.integers(1, 40)
         tris.append([(x - r, y - r), (x + r, y + r), (x + r, y - r)])
     s = tp.setup_px(tris, 128, 64)
-    stream = raster_stream(s["tri_data"], s["bbox_rows"],
-                           stream_perm(s["bbox_rows"], s["valid"]))
+    perm = stream_perm(s["bbox_rows"], s["valid"])
+    if case == "padded":
+        t_pad, group = 70 * 256, 32 * 256
+        # a third of the valid triangles a group, the invalid ones in the last
+        parts = np.array_split(np.arange(int(s["valid"].sum())), 3)
+        parts[2] = np.arange(parts[2][0], 600)
+        at = np.concatenate([np.sort(rng.choice(np.arange(g * group, min(t_pad, g * group + group)),
+                                                size=len(part), replace=False))
+                             for g, part in enumerate(parts)])
+        full = np.empty(t_pad, np.int64)
+        full[at] = perm[:600].numpy()
+        full[np.setdiff1d(np.arange(t_pad), at)] = np.arange(600, t_pad)
+        perm = torch.from_numpy(full)
+    return raster_stream(s["tri_data"], s["bbox_rows"], perm)
+
+
+@pytest.mark.parametrize("case", ["sorted", "padded"])
+def test_staging_counts_match_a_direct_count(case):
+    """chip_smoke.staging_counts (what the CUDA raster lists per 16x16
+    block: hit groups and chunks, the cull's bbox tests with and without
+    the group level, touching triangles) against a block-by-block count."""
+    import chip_smoke
+
+    stream = _staging_stream(case)
     got = chip_smoke.staging_counts(stream, 64, 128)
     tri_data, tri_bbox, chunk_bbox = stream
     valid = tri_data[15] >= 0
-    hits, touches = [], []
+    n_chunks = chunk_bbox.shape[1]
+    n_groups = -(-n_chunks // 32)
+    group_box = [(chunk_bbox[:2, 32 * g:32 * g + 32].amin(dim=1),
+                  chunk_bbox[2:, 32 * g:32 * g + 32].amax(dim=1)) for g in range(n_groups)]
+    hits, touches, group_hits, tests = [], [], [], []
     for by in range(0, 64, 16):
         for bx in range(0, 128, 16):
             hits.append(int(((chunk_bbox[0] < bx + 16) & (chunk_bbox[1] < by + 16)
                              & (chunk_bbox[2] > bx) & (chunk_bbox[3] > by)).sum()))
             touches.append(int((valid & (tri_bbox[0] < bx + 16) & (tri_bbox[1] < by + 16)
                                 & (tri_bbox[2] > bx) & (tri_bbox[3] > by)).sum()))
+            hit = [g for g, (lo, hi) in enumerate(group_box)
+                   if lo[0] < bx + 16 and lo[1] < by + 16 and hi[0] > bx and hi[1] > by]
+            group_hits.append(len(hit))
+            tests.append(n_groups + sum(min(32, n_chunks - 32 * g) for g in hit))
     assert sum(touches) > 0 and max(hits) > 1
     assert got["block_chunk_hits"] == sum(hits)
     assert got["hit_chunks_per_block_max"] == max(hits)
     assert got["block_tri_touches"] == sum(touches)
     assert got["touching_tris_per_block_max"] == max(touches)
     assert got["staged_mb"] == round(sum(touches) * 96 / 1e6, 3)
+    assert got["groups"] == n_groups == (1 if case == "sorted" else 3)
+    assert got["hit_groups_per_block_mean"] == round(sum(group_hits) / 32, 3)
+    assert got["hit_groups_per_block_max"] == max(group_hits)
+    assert got["chunk_tests_per_block_flat"] == n_chunks
+    assert got["chunk_tests_per_block"] == round(sum(tests) / 32, 3)
+    if case == "padded":  # the ragged group and a block missing a group
+        assert max(group_hits) == 3 and min(group_hits) < 3
+        assert got["chunk_tests_per_block"] < n_chunks
 
 
 WIN_W, WIN_H = 64, 48

@@ -8,15 +8,25 @@
 //
 // What bounds it on the card: not bytes (each valid triangle's rows once,
 // the outputs once) but instructions and latency. A block must find the
-// few triangles that touch it among the ~1,000 chunks of 256 a frame
-// streams (it hits ~4 chunks, and ~3% of their triangles touch it), a
-// chain of dependent loads and barriers that only many blocks in flight
-// hide; then every pixel tests every listed triangle, and a warp evaluates
-// samples wherever any of its pixels lies in the triangle's bbox, the
-// larger part of the time (PERF.md). So the block
-//   1. tests the chunk bboxes, 4 per thread and round with their loads in
-//      flight together, and lists the hits in thread order (a warp scan and
-//      a block prefix: no atomics);
+// few triangles that touch it among the chunks of 256 a frame streams
+// (~1,000 at 1080p, ~11,600 at 2160p; it hits ~4, and ~3% of their
+// triangles touch it), a chain of dependent loads and barriers that only
+// many blocks in flight hide; then every pixel tests every listed
+// triangle, and a warp evaluates samples wherever any of its pixels lies
+// in the triangle's bbox (PERF.md). So, before the block
+//   0. chunk_group_kernel reduces each run of kChunkGroup consecutive chunk
+//      bboxes to a group bbox (the stream is in screen-Morton order, so a
+//      run is compact); then the block
+//   1. tests every group bbox, 4 per thread and round with their loads in
+//      flight together, and lists the hit groups in thread order (a warp
+//      scan and a block prefix: no atomics); then the chunks of the hit
+//      groups, one group a warp and one chunk a lane, kWarps groups a
+//      round, listing the hit chunks the same way. A chunk can touch the
+//      block only if its group does, so the hit chunks are those a test of
+//      every chunk bbox finds, at 1/25-1/27 of its tests at 2160p (~465 a
+//      block, not 11,640). Step 1 is then bound by its fixed chain (one
+//      round of group tests, one of chunk tests, each a scan and barriers)
+//      and not by the count: 0.10 ms of a 2160p frame, 0.75 ms before;
 //   2. tests 2 hit chunks at a time, each thread its own triangle of each
 //      (valid id, bbox against the block), straight from global memory:
 //      2 x 5 coalesced loads in flight per thread;
@@ -39,7 +49,7 @@
 // first K entries of a longer sorted list are the K nearest); fully
 // unrolled, the S x K x 2 words stay in registers, and the launch bounds
 // ask ptxas for as many resident blocks as the (S, K) accumulators allow
-// without a spill. Shared memory (29 KB a block) does not bound occupancy.
+// without a spill. Shared memory (30 KB a block) does not bound occupancy.
 // Each warp covers an 8x4 pixel tile, so a small triangle's bbox meets
 // fewer warps than with two 16-pixel rows.
 // A band of rows (the multi-device frame, parallel/tiles.py) is the frame's
@@ -54,10 +64,14 @@
 // its covered samples at the least depth (-1 when none), as (layers,
 // height * width) ids, and layer 0's covered-sample share as (height * width)
 // floats, so a pixel-rate frame never writes the planes or reads them back.
-// No matrix product occurs, so wgmma does not apply. The alternatives
-// measured against these choices (plain loads, one chunk per list, other
-// group and test widths, 16-pixel warp rows, lists row by row, ptxas's own
-// register count) are recorded in PERF.md.
+// The kernel's time now goes to steps 2-4: the triangle tests of the hit
+// chunks and the per-pixel evaluation. No matrix product occurs, so wgmma
+// does not apply. The alternatives measured against these choices (plain
+// loads, one chunk per list, other group and test widths, 16-pixel warp
+// rows, lists row by row, ptxas's own register count, a test of every
+// chunk bbox, groups of 64 chunks, 32-bit group indices, group and chunk
+// tests interleaved round by round, which took registers and spilled) are
+// recorded in PERF.md.
 #include "common.cuh"
 
 namespace {
@@ -66,12 +80,22 @@ constexpr int kBlock = 16;
 constexpr int kThreads = kBlock * kBlock;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 256;
-constexpr int kTestWidth = 4;  // chunk bboxes per thread and round
-constexpr int kGroup = 2;      // hit chunks whose triangles are tested together
-constexpr int kList = 128;     // triangles per list (two lists)
-constexpr int kListRows = 24;  // tri_data rows 0..19, then the bbox
+constexpr int kTestWidth = 4;    // group bboxes per thread and round
+constexpr int kChunkGroup = 32;  // consecutive chunks under one group bbox
+constexpr int kGroup = 2;        // hit chunks whose triangles are tested together
+constexpr int kList = 128;       // triangles per list (two lists)
+constexpr int kListRows = 24;    // tri_data rows 0..19, then the bbox
 constexpr int kIdRow = 15;
-constexpr int kBox = 20;       // list row of the bbox
+constexpr int kBox = 20;         // list row of the bbox
+constexpr float kBig = 1073741824.0f;  // 2^30, the empty bbox's corner
+// the most groups a stream has (the wrapper keeps t_pad below 2^24), and
+// the group list's end mark
+constexpr int kMaxGroups = (1 << 24) / (kChunk * kChunkGroup);
+constexpr unsigned short kEnd = 0xFFFF;
+
+__host__ __device__ constexpr int n_groups_of(int n_chunks) {
+  return (n_chunks + kChunkGroup - 1) / kChunkGroup;
+}
 
 // MSAA sample offsets (config.SAMPLE_OFFSETS), passed by value
 struct Offsets {
@@ -129,6 +153,48 @@ __device__ __forceinline__ int block_scan(int v, int tid, int* warp_sums, int& t
     total += c;
   }
   return before + incl - v;
+}
+
+// Whether column c of a (4, n) bbox array overlaps the block.
+__device__ __forceinline__ bool overlaps(const float* bbox, int n, int c, float fbx0, float fby0,
+                                         float fbx1, float fby1) {
+  const float x0 = bbox[c], y0 = bbox[n + c], x1 = bbox[2 * n + c], y1 = bbox[3 * n + c];
+  return x0 < fbx1 && y0 < fby1 && x1 > fbx0 && y1 > fby0;
+}
+
+// 0. The group bboxes: group g covers chunks kChunkGroup g .. kChunkGroup g
+// + kChunkGroup - 1 (a ragged last group the chunks it has), one warp a
+// group; min x0, min y0, max x1, max y1 from the empty bbox, propagating NaN
+// as torch.amin / amax do (chunk_group_bbox_plain).
+__global__ void __launch_bounds__(kThreads) chunk_group_kernel(
+    const float* __restrict__ chunk_bbox, float* __restrict__ group_bbox, int n_chunks,
+    int n_groups) {
+  const int lane = threadIdx.x & 31, g = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (g >= n_groups) return;  // a whole warp
+  float box[4] = {kBig, kBig, -kBig, -kBig};
+#pragma unroll
+  for (int j = 0; j < kChunkGroup / 32; ++j) {
+    const int c = g * kChunkGroup + j * 32 + lane;
+    if (c < n_chunks) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float v = chunk_bbox[r * n_chunks + c];
+        box[r] = r < 2 ? tmin(box[r], v) : tmax(box[r], v);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float v = __shfl_xor_sync(0xFFFFFFFFu, box[r], o);
+      box[r] = r < 2 ? tmin(box[r], v) : tmax(box[r], v);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) group_bbox[r * n_groups + g] = box[r];
+  }
 }
 
 template <int S, int K>
@@ -199,11 +265,14 @@ constexpr int kMinBlocks = S * K <= 4 ? 4 : (S * K <= 8 ? 3 : (S * K <= 32 ? 2 :
 template <int S, int K, bool Winner>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<S, K>) raster_kernel(
     const float* __restrict__ tri_data, const float* __restrict__ tri_bbox,
-    const float* __restrict__ chunk_bbox, int* __restrict__ out_id,
-    float* __restrict__ out_depth, int n_chunks, int height, int width, int layers,
-    int y_offset, Offsets off) {
+    const float* __restrict__ chunk_bbox, const float* __restrict__ group_bbox,
+    int* __restrict__ out_id, float* __restrict__ out_depth, int n_chunks, int height, int width,
+    int layers, int y_offset, Offsets off) {
   __shared__ __align__(16) float lists[2][kList * kListRows];
-  __shared__ int hit_list[kThreads * kTestWidth];
+  // 16-bit group indices: 4 KB of shared memory a block less than 32-bit
+  // ones, and no slower (PERF.md)
+  __shared__ unsigned short group_list[kMaxGroups + kWarps];
+  __shared__ int hit_list[kWarps * kChunkGroup];
   __shared__ int sums[2][kWarps];
 
   const int tid = threadIdx.y * kBlock + threadIdx.x;
@@ -236,28 +305,53 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<S, K>) raster_kernel(
   int cur = 0, n_list = 0, par = 0;
   bool pending = false;
 
-  for (int base = 0; base < n_chunks; base += kThreads * kTestWidth) {
-    // 1. this round's hit chunks: kTestWidth bboxes per thread, loads in flight
-    // together, listed in thread order
-    bool hit[kTestWidth];
-    int mine = 0;
+  // 1a. every group bbox, kTestWidth per thread and round with their loads
+  // in flight together; the hit groups listed in thread order, then kWarps
+  // end marks, so no count stays live through the loops below
+  {
+    const int n_groups = n_groups_of(n_chunks);
+    int listed = 0;
+    for (int base = 0; base < n_groups; base += kThreads * kTestWidth) {
+      bool hit[kTestWidth];
+      int mine = 0;
 #pragma unroll
-    for (int j = 0; j < kTestWidth; ++j) {
-      const int c = base + j * kThreads + tid;
-      hit[j] = false;
-      if (c < n_chunks) {
-        const float cx0 = chunk_bbox[c], cy0 = chunk_bbox[n_chunks + c];
-        const float cx1 = chunk_bbox[2 * n_chunks + c], cy1 = chunk_bbox[3 * n_chunks + c];
-        hit[j] = cx0 < fbx1 && cy0 < fby1 && cx1 > fbx0 && cy1 > fby0;
+      for (int j = 0; j < kTestWidth; ++j) {
+        const int g = base + j * kThreads + tid;
+        hit[j] = g < n_groups && overlaps(group_bbox, n_groups, g, fbx0, fby0, fbx1, fby1);
+        mine += hit[j] ? 1 : 0;
       }
-      mine += hit[j] ? 1 : 0;
+      int total;
+      int at = listed + block_scan(mine, tid, sums[par], total);
+      par ^= 1;
+#pragma unroll
+      for (int j = 0; j < kTestWidth; ++j)
+        if (hit[j]) group_list[at++] = (unsigned short)(base + j * kThreads + tid);
+      listed += total;
+    }
+    if (tid < kWarps) group_list[listed + tid] = kEnd;
+    __syncthreads();
+  }
+
+  // 1b. the chunks of kWarps hit groups at a time, a group a warp and a
+  // chunk a lane, listed in thread order
+  for (int first = 0; group_list[first] != kEnd; first += kWarps) {
+    bool in[kChunkGroup / 32];
+    int own_chunks = 0;
+    const unsigned short mark = group_list[first + warp];
+    const int gw = mark == kEnd ? -1 : mark;
+#pragma unroll
+    for (int j = 0; j < kChunkGroup / 32; ++j) {
+      const int c = gw * kChunkGroup + j * 32 + lane;
+      in[j] = gw >= 0 && c < n_chunks &&
+              overlaps(chunk_bbox, n_chunks, c, fbx0, fby0, fbx1, fby1);
+      own_chunks += in[j] ? 1 : 0;
     }
     int hits;
-    int at = block_scan(mine, tid, sums[par], hits);
+    int slot = block_scan(own_chunks, tid, sums[par], hits);
     par ^= 1;
 #pragma unroll
-    for (int j = 0; j < kTestWidth; ++j)
-      if (hit[j]) hit_list[at++] = base + j * kThreads + tid;
+    for (int j = 0; j < kChunkGroup / 32; ++j)
+      if (in[j]) hit_list[slot++] = gw * kChunkGroup + j * 32 + lane;
     __syncthreads();
 
     // 2. kGroup hit chunks at a time: triangle tid of each against the block
@@ -381,44 +475,61 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<S, K>) raster_kernel(
 
 template <int S, int K, bool Winner>
 void launch(dim3 blocks, dim3 threads, cudaStream_t stream, const float* tri_data,
-            const float* tri_bbox, const float* chunk_bbox, int* out_id, float* out_depth,
-            int n_chunks, int height, int width, int layers, int y_offset, const Offsets& off) {
+            const float* tri_bbox, const float* chunk_bbox, const float* group_bbox, int* out_id,
+            float* out_depth, int n_chunks, int height, int width, int layers, int y_offset,
+            const Offsets& off) {
   raster_kernel<S, K, Winner><<<blocks, threads, 0, stream>>>(
-      tri_data, tri_bbox, chunk_bbox, out_id, out_depth, n_chunks, height, width, layers,
-      y_offset, off);
+      tri_data, tri_bbox, chunk_bbox, group_bbox, out_id, out_depth, n_chunks, height, width,
+      layers, y_offset, off);
 }
 
 template <int S, bool Winner>
 int launch_layers(dim3 blocks, dim3 threads, cudaStream_t stream, const float* tri_data,
-                  const float* tri_bbox, const float* chunk_bbox, int* out_id, float* out_depth,
-                  int n_chunks, int height, int width, int layers, int y_offset,
-                  const Offsets& off) {
+                  const float* tri_bbox, const float* chunk_bbox, const float* group_bbox,
+                  int* out_id, float* out_depth, int n_chunks, int height, int width, int layers,
+                  int y_offset, const Offsets& off) {
   if (layers == 1)
-    launch<S, 1, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
-                         out_depth, n_chunks, height, width, layers, y_offset, off);
+    launch<S, 1, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, group_bbox,
+                         out_id, out_depth, n_chunks, height, width, layers, y_offset, off);
   else if (layers == 2)
-    launch<S, 2, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
-                         out_depth, n_chunks, height, width, layers, y_offset, off);
+    launch<S, 2, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, group_bbox,
+                         out_id, out_depth, n_chunks, height, width, layers, y_offset, off);
   else if (layers <= 4)
-    launch<S, 4, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
-                         out_depth, n_chunks, height, width, layers, y_offset, off);
+    launch<S, 4, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, group_bbox,
+                         out_id, out_depth, n_chunks, height, width, layers, y_offset, off);
   else if (layers <= 8)
-    launch<S, 8, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, out_id,
-                         out_depth, n_chunks, height, width, layers, y_offset, off);
+    launch<S, 8, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox, group_bbox,
+                         out_id, out_depth, n_chunks, height, width, layers, y_offset, off);
   else
     return (int)cudaErrorInvalidValue;
   return launch_status();
 }
 
+// Step 0 alone: group_bbox (4, n_groups_of(n_chunks)) from chunk_bbox
+// (4, n_chunks).
+int chunk_groups(const float* chunk_bbox, float* group_bbox, int n_chunks, cudaStream_t stream) {
+  const int n_groups = n_groups_of(n_chunks);
+  if (n_chunks <= 0 || n_groups > kMaxGroups) return (int)cudaErrorInvalidValue;
+  chunk_group_kernel<<<(n_groups + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      chunk_bbox, group_bbox, n_chunks, n_groups);
+  return launch_status();
+}
+
 // The rows y_offset .. y_offset + height of the frame (y_offset a multiple
-// of 16) in the planes form or the winner form.
+// of 16) in the planes form or the winner form: the group bboxes into
+// group_bbox, then the raster, on one stream.
 template <bool Winner>
 int raster_band(const float* tri_data, const float* tri_bbox, const float* chunk_bbox,
-                int* out_id, float* out_depth, int n_chunks, int height, int width, int samples,
-                int layers, int y_offset, const float* offsets, cudaStream_t stream) {
+                float* group_bbox, int* out_id, float* out_depth, int n_chunks, int height,
+                int width, int samples, int layers, int y_offset, const float* offsets,
+                cudaStream_t stream) {
   if (layers < 1 || y_offset < 0 || y_offset % kBlock) return (int)cudaErrorInvalidValue;
+  if (samples != 1 && samples != 2 && samples != 4 && samples != 8)
+    return (int)cudaErrorInvalidValue;
+  const int status = chunk_groups(chunk_bbox, group_bbox, n_chunks, stream);
+  if (status) return status;
   Offsets off = {};
-  for (int s = 0; s < samples && s < 8; ++s) {
+  for (int s = 0; s < samples; ++s) {
     off.v[s][0] = offsets[2 * s];
     off.v[s][1] = offsets[2 * s + 1];
   }
@@ -427,50 +538,59 @@ int raster_band(const float* tri_data, const float* tri_bbox, const float* chunk
   switch (samples) {
     case 1:
       return launch_layers<1, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox,
-                                      out_id, out_depth, n_chunks, height, width, layers,
-                                      y_offset, off);
+                                      group_bbox, out_id, out_depth, n_chunks, height, width,
+                                      layers, y_offset, off);
     case 2:
       return launch_layers<2, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox,
-                                      out_id, out_depth, n_chunks, height, width, layers,
-                                      y_offset, off);
+                                      group_bbox, out_id, out_depth, n_chunks, height, width,
+                                      layers, y_offset, off);
     case 4:
       return launch_layers<4, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox,
-                                      out_id, out_depth, n_chunks, height, width, layers,
-                                      y_offset, off);
-    case 8:
-      return launch_layers<8, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox,
-                                      out_id, out_depth, n_chunks, height, width, layers,
-                                      y_offset, off);
+                                      group_bbox, out_id, out_depth, n_chunks, height, width,
+                                      layers, y_offset, off);
     default:
-      return (int)cudaErrorInvalidValue;
+      return launch_layers<8, Winner>(blocks, threads, stream, tri_data, tri_bbox, chunk_bbox,
+                                      group_bbox, out_id, out_depth, n_chunks, height, width,
+                                      layers, y_offset, off);
   }
 }
 
 }  // namespace
 
+// The group bboxes of a stream's chunk bboxes (the raster entries launch
+// the same kernel first): group_bbox (4, ceil(n_chunks / 32)) f32.
+VKTF_EXPORT int vktf_raster_groups(const float* chunk_bbox, float* group_bbox, int n_chunks,
+                                   cudaStream_t stream) {
+  return chunk_groups(chunk_bbox, group_bbox, n_chunks, stream);
+}
+
 // The planes of the rows y_offset .. y_offset + height of the frame;
-// vktf_raster is the whole frame from row 0.
+// vktf_raster is the whole frame from row 0. group_bbox (4, ceil(n_chunks /
+// 32)) f32 is written, then read by the raster.
 VKTF_EXPORT int vktf_raster_band(const float* tri_data, const float* tri_bbox,
-                                 const float* chunk_bbox, int* out_id, float* out_depth,
-                                 int n_chunks, int height, int width, int samples, int layers,
-                                 int y_offset, const float* offsets, cudaStream_t stream) {
-  return raster_band<false>(tri_data, tri_bbox, chunk_bbox, out_id, out_depth, n_chunks, height,
-                            width, samples, layers, y_offset, offsets, stream);
+                                 const float* chunk_bbox, float* group_bbox, int* out_id,
+                                 float* out_depth, int n_chunks, int height, int width,
+                                 int samples, int layers, int y_offset, const float* offsets,
+                                 cudaStream_t stream) {
+  return raster_band<false>(tri_data, tri_bbox, chunk_bbox, group_bbox, out_id, out_depth,
+                            n_chunks, height, width, samples, layers, y_offset, offsets, stream);
 }
 
 VKTF_EXPORT int vktf_raster(const float* tri_data, const float* tri_bbox, const float* chunk_bbox,
-                            int* out_id, float* out_depth, int n_chunks, int height, int width,
-                            int samples, int layers, const float* offsets, cudaStream_t stream) {
-  return vktf_raster_band(tri_data, tri_bbox, chunk_bbox, out_id, out_depth, n_chunks, height,
-                          width, samples, layers, 0, offsets, stream);
+                            float* group_bbox, int* out_id, float* out_depth, int n_chunks,
+                            int height, int width, int samples, int layers, const float* offsets,
+                            cudaStream_t stream) {
+  return vktf_raster_band(tri_data, tri_bbox, chunk_bbox, group_bbox, out_id, out_depth, n_chunks,
+                          height, width, samples, layers, 0, offsets, stream);
 }
 
 // The winner form of the same rows: out_tri (layers, height * width) i32,
 // out_frac (height * width) f32.
 VKTF_EXPORT int vktf_raster_winner(const float* tri_data, const float* tri_bbox,
-                                   const float* chunk_bbox, int* out_tri, float* out_frac,
-                                   int n_chunks, int height, int width, int samples, int layers,
-                                   int y_offset, const float* offsets, cudaStream_t stream) {
-  return raster_band<true>(tri_data, tri_bbox, chunk_bbox, out_tri, out_frac, n_chunks, height,
-                           width, samples, layers, y_offset, offsets, stream);
+                                   const float* chunk_bbox, float* group_bbox, int* out_tri,
+                                   float* out_frac, int n_chunks, int height, int width,
+                                   int samples, int layers, int y_offset, const float* offsets,
+                                   cudaStream_t stream) {
+  return raster_band<true>(tri_data, tri_bbox, chunk_bbox, group_bbox, out_tri, out_frac,
+                           n_chunks, height, width, samples, layers, y_offset, offsets, stream);
 }
